@@ -2,20 +2,31 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, each timed:
   1. the card's name and power limit; build the hand kernels from
-     src/repro_torch/kernels/csrc with nvcc (timed);
+     src/repro_torch/kernels/csrc with nvcc (one process per source, all at
+     once); a few queries through the serve CLI, sequential and batched;
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32 × six modes, K2a/K2b over M 128…2**16
      and N 128…2**24 with all-SENTINEL and no-match rows, K3 over modes,
-     FastPFOR exceptions, pad ids and C 8…256;
+     FastPFOR exceptions, pad ids and C 8…256, K4 over N 1…2**23 with
+     SENTINEL and padded rows, holes in the incoming mask, inactive slots
+     and J = 0, K5 over modes d1–dv × bp/fastpfor (with and without
+     exceptions), 32- and 8-row blocks, inactive, empty and single-block
+     slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0;
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built as fastpfor-d1 and
-     as bp-d1 (B=16, two parts) on the card and served through
-     ``serve.serve_queries`` / ``engine.query`` in three regimes — default,
-     DecodeCache, skip=False — with every answer checked against numpy brute
-     force and the launch counts of K1, K2 and K3 checked, then one more
-     default pass of each build under torch.profiler (device idle share);
+     as bp-d1 (two parts) on the card, at B=16 in three regimes — default,
+     DecodeCache, skip=False — and without bitmaps (B=0) in the default
+     regime:
+     3.  sequentially through ``serve.serve_queries`` / ``engine.query``;
+     3b. batched through ``serve.serve_batched`` / ``batch.execute_batch``
+         at batch 32, fused, with one FusionPlan per build warmed by
+         ``batch.warmup``;
+     every answer is checked against numpy brute force (and the batched
+     ones against the sequential ones), and the launch counts of K1–K5 are
+     checked; then one more default pass of each build and each path under
+     torch.profiler (device idle share);
   4. each kernel timed with CUDA events at the largest shape the main path
      gave it, beside its plain version, a library call where one computes
      the same function, and its bound (bytes over 3.35 TB/s, or 32-bit
@@ -41,6 +52,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # H100 SXM 32-bit operations outside tensor cores
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
 N_QUERIES = 64
+BATCH = 32
+# Index configurations over the one corpus: (name, bitmap threshold B,
+# regimes).  B=16 is HYB+M2 as the serving default builds it; B=0 (no
+# bitmaps) is the paper's other end of the B sweep (Tables 4/5, B ∈ {0, 8,
+# 16, 32}).  The batched scheduler skip-probes a list only when it is over
+# 32× the seed's whole list in a part (source.SKIP_MIN_RATIO); at B=16 every
+# list that long is a bitmap, so the batched skip path (K5) runs at B=0.
+CELLS = (("B16", 16, ("default", "cache", "noskip")),
+         ("B0", 0, ("default",)))
 SENT = 2**31 - 1
 REPLACES = {
     "unpack_blocks": ("src/repro_torch/kernels/csrc/unpack_blocks.cu",
@@ -51,6 +71,10 @@ REPLACES = {
                              "src/repro/kernels/intersect_gallop.py:103"),
     "packed_gallop_batched": ("src/repro_torch/kernels/csrc/packed_gallop.cu",
                               "src/repro/kernels/intersect_gallop.py:171"),
+    "decoded_fold_batched": ("src/repro_torch/kernels/csrc/decoded_fold.cu",
+                             "src/repro/kernels/megakernel.py:88"),
+    "packed_fold_batched": ("src/repro_torch/kernels/csrc/packed_fold.cu",
+                            "src/repro/kernels/megakernel.py:162"),
 }
 
 
@@ -172,7 +196,8 @@ def packed_operands(encs, rs, c_pad, dev):
     return [_t(np.stack(v), dev) for v in cols.values()]
 
 
-def check_k3(dev) -> None:
+def check_k3(dev) -> dict:
+    """K3 vs plain; returns the encoded lists and candidates for K5's check."""
     from repro_torch.core import bitpack, fastpfor, intersect as its
     from repro_torch.kernels import ops
     rng = np.random.default_rng(3)
@@ -183,10 +208,12 @@ def check_k3(dev) -> None:
     dense = np.union1d(rng.choice(f, 20000), rng.integers(0, int(f[-1]), 20000))
     sparse = np.union1d(rng.choice(f[:40000], 300), rng.integers(0, 40000, 50))
     n_checks = 0
+    encs = {}
     for mode in ("d1", "d2", "d4", "dm", "dv"):
         for codec in ("bp", "fastpfor"):
-            enc = (fastpfor.encode(f, mode=mode) if codec == "fastpfor"
-                   else bitpack.encode(f, mode=mode))
+            enc = encs[(codec, mode)] = (
+                fastpfor.encode(f, mode=mode) if codec == "fastpfor"
+                else bitpack.encode(f, mode=mode))
             for c_pad, r in ((8, sparse), (256, dense)):
                 args = packed_operands([enc, enc], [r, r[::2]], c_pad, dev)
                 want = its.intersect_packed_batch(*args, mode=mode,
@@ -201,6 +228,170 @@ def check_k3(dev) -> None:
                 raise AssertionError("K3 check has no FastPFOR exceptions")
     log(f"K3 equal to plain on {n_checks} cases: modes d1/d2/d4/dm/dv, bp and "
         f"fastpfor (with exceptions), pad ids, C = 8 and 256")
+    return {"encs": encs, "f": f, "dense": dense, "sparse": sparse}
+
+
+def fold_case(rng, B, M, N, J, b_real):
+    """K4 operands: rows b >= b_real are batch padding (all SENTINEL,
+    invalid, inactive); real rows are SENTINEL-tailed, with holes in the
+    incoming mask, and folds that share some of their values."""
+    r = np.full((B, M), SENT, np.int32)
+    folds = np.full((J, B, N), SENT, np.int32)
+    for b in range(b_real):
+        rv = np.unique(rng.integers(0, 1 << 30, 3 * M // 4))
+        r[b, : rv.size] = rv
+        for j in range(J):
+            fv = np.union1d(rng.choice(rv, rv.size // 2),
+                            rng.integers(0, 1 << 30, N // 2))[: N - 1]
+            folds[j, b, : fv.size] = fv
+    act = rng.random((J, B)) < 0.75
+    act[:, b_real:] = False
+    act[0, 0] = True
+    valid = (r != SENT) & (rng.random((B, M)) < 0.9)
+    return r, valid, folds, act
+
+
+def _tb(a: np.ndarray, device) -> torch.Tensor:
+    return (torch.from_numpy(a).to(device) if a.dtype == np.bool_
+            else _t(a, device))
+
+
+def check_k4(dev) -> None:
+    from repro_torch.kernels import megakernel, ops
+    rng = np.random.default_rng(4)
+    cases = [(3, 256, 1024, 3, 3), (4, 1000, 4099, 2, 3),
+             (6, 4096, 1 << 16, 4, 4), (2, 1 << 14, 1 << 23, 2, 2),
+             (2, 300, 1, 1, 1)]
+    for B, M, N, J, b_real in cases:
+        args = [_tb(a, dev) for a in fold_case(rng, B, M, N, J, b_real)]
+        want = megakernel.decoded_fold_plain(*args)
+        expect_equal(f"K4 B={B} M={M} N={N} J={J}",
+                     ops.intersect_fold_batch(*args), want)
+        expect_equal(f"K4 J=0 B={B} M={M}",
+                     ops.intersect_fold_batch(args[0], args[1], args[2][:0],
+                                              args[3][:0]), args[1])
+        if N > 1 and not bool(want.any()):
+            raise AssertionError(f"K4 B={B} M={M} N={N}: no matches")
+    log(f"K4 equal to plain on {len(cases)} cases, N = 1 … 2**23 (N not a "
+        f"power of two too), SENTINEL and padded rows, holes in the incoming "
+        f"mask, inactive slots, and J = 0")
+
+
+def packed_fold_operands(grid, r_rows, dev, *, M=None, k_pad=None,
+                         t_pad=None, c_pad=None, e_pad=None, bp=None):
+    """K5 operands, laid out as index/batch.py stacks them, for a (Jp, B)
+    grid of optional encoded lists and each row's candidates; the pads may
+    be raised past the payloads as a fused family key raises them.  Returns
+    (r, valid, pk tuple, active) on ``dev``, valid with holes."""
+    from repro_torch.core import bitpack, intersect as its
+    from repro_torch.index import source
+    Jp, B = len(grid), len(grid[0])
+    encs = {(j, b): e for j, row in enumerate(grid)
+            for b, e in enumerate(row) if e is not None}
+    pads = [max(bitpack.self_pads(e)[i] for e in encs.values())
+            for i in range(3)]
+    k_pad, t_pad, e_pad = (k_pad or pads[0], t_pad or pads[1],
+                           pads[2] if e_pad is None else e_pad)
+    blks = {k: bitpack.candidate_block_ids(
+                bitpack.layout_np(e, k_pad, t_pad, e_pad).maxes[
+                    : e.num_blocks], r_rows[k[1]]) for k, e in encs.items()}
+    c_pad = c_pad or its.pow2_bucket(max(len(v) for v in blks.values()),
+                                     floor=source.CAND_FLOOR)
+    Bp = bp or B
+    M = M or its.pow2_bucket(max(len(r) for r in r_rows))
+    cols = {"words": np.zeros((Jp, Bp, t_pad, 128), np.uint32),
+            "widths": np.zeros((Jp, Bp, k_pad), np.int32),
+            "offsets": np.zeros((Jp, Bp, k_pad), np.int32),
+            "maxes": np.zeros((Jp, Bp, k_pad), np.uint32),
+            "blk": np.full((Jp, Bp, c_pad), k_pad, np.int32),
+            "exc_pos": np.full((Jp, Bp, e_pad), -1, np.int32),
+            "exc_add": np.zeros((Jp, Bp, e_pad), np.uint32)}
+    active = np.zeros((Jp, Bp), bool)
+    for (j, b), e in encs.items():
+        lay = bitpack.layout_np(e, k_pad, t_pad, e_pad)
+        for k in ("words", "widths", "offsets", "maxes", "exc_pos", "exc_add"):
+            cols[k][j, b] = getattr(lay, k)
+        cols["blk"][j, b] = source.pad_block_ids(blks[(j, b)], c_pad, k_pad)
+        active[j, b] = True
+    r = np.full((Bp, M), SENT, np.int32)
+    for b, rv in enumerate(r_rows):
+        r[b, : len(rv)] = rv
+    valid = (r != SENT) & (r % 7 != 3)
+    return (_tb(r, dev), _tb(valid, dev),
+            tuple(_tb(v, dev) for v in cols.values()), _tb(active, dev))
+
+
+def check_k5(dev, k3: dict) -> None:
+    from repro_torch.core import bitpack, fastpfor
+    from repro_torch.kernels import megakernel, ops
+    rng = np.random.default_rng(5)
+    f, dense, sparse = k3["f"], k3["dense"], k3["sparse"]
+    n_checks = 0
+
+    def check(what, r, valid, pk, active, mode, rows, want_hits=True):
+        nonlocal n_checks
+        want = megakernel.packed_fold_plain(r, valid, *pk, active, mode=mode,
+                                            block_rows=rows)
+        got = ops.intersect_packed_fold(r, valid, pk, active, mode=mode,
+                                        block_rows=rows)
+        expect_equal(f"K5 {what}", got, want)
+        if want_hits and not bool(want.any()):
+            raise AssertionError(f"K5 {what}: no matches")
+        n_checks += 1
+        return want
+
+    # modes × codecs (bp: E = 0; fastpfor: exceptions), an inactive slot
+    for (codec, mode), enc in k3["encs"].items():
+        grid = [[enc, enc, enc], [enc, enc, None]]
+        ops_ = packed_fold_operands(grid, [dense, sparse, dense[::2]], dev)
+        check(f"{codec}-{mode}", *ops_, mode, enc.block_rows)
+        if codec == "fastpfor" and not bool((ops_[2][5] >= 0).any()):
+            raise AssertionError("K5 check has no FastPFOR exceptions")
+    # 8-row blocks; a single-block list; an empty (disjoint) row
+    short = f[:200000]
+    tiny = np.sort(rng.choice(1 << 12, 500, replace=False)).astype(np.int64)
+    evens = 2 * np.sort(rng.choice(1 << 20, 3000, replace=False))
+    for codec in ("bp", "fastpfor"):
+        enc = (fastpfor.encode(short, mode="d1", block_rows=8)
+               if codec == "fastpfor" else
+               bitpack.encode(short, mode="d1", block_rows=8))
+        one = bitpack.encode(tiny, mode="d1", block_rows=8)
+        odd = bitpack.encode(evens.astype(np.int64), mode="d1", block_rows=8)
+        if one.num_blocks != 1:
+            raise AssertionError("K5 check lacks a single-block list")
+        ops_ = packed_fold_operands(
+            [[enc, one, odd]], [dense[dense < short[-1]], tiny[:64],
+                                evens[:64] + 1], dev)
+        want = check(f"{codec}-d1 rows=8, single-block and empty slots",
+                     *ops_, "d1", 8)
+        if bool(want[2].any()) or not bool(want[1].any()):
+            raise AssertionError("K5 single-block / empty slots are wrong")
+    # family-ceiling pads: k/t/c/e raised, Jp = 4, Bp = 4 > B = 1
+    enc = k3["encs"][("fastpfor", "dm")]
+    tight = check("fastpfor-dm tight", *packed_fold_operands(
+        [[enc]], [dense], dev), "dm", 32)
+    k_pad, t_pad, e_pad = bitpack.self_pads(enc)
+    grid = [[enc, None, None, None]] + [[None] * 4 for _ in range(3)]
+    ops_ = packed_fold_operands(grid, [dense], dev, k_pad=4 * k_pad,
+                                t_pad=2 * t_pad, c_pad=1024,
+                                e_pad=2 * max(e_pad, 4), bp=4)
+    ceil = check("fastpfor-dm family-ceiling pads", *ops_, "dm", 32)
+    if not torch.equal(ceil[0], tight[0]) or bool(ceil[1:].any()):
+        raise AssertionError("K5 family-ceiling pads change the result")
+    # a 2**23-int window per slot: 2048 candidate slots of 4096 ints
+    enc = k3["encs"][("bp", "d1")]
+    ops_ = packed_fold_operands([[enc, enc]], [dense, sparse], dev,
+                                c_pad=2048)
+    check("bp-d1 window 2**23", *ops_, "d1", 32)
+    # Jp = 0
+    r, valid, pk, active = ops_
+    expect_equal("K5 Jp=0", ops.intersect_packed_fold(
+        r, valid, tuple(a[:0] for a in pk), active[:0], mode="d1",
+        block_rows=32), valid)
+    log(f"K5 equal to plain on {n_checks} cases: modes d1/d2/d4/dm/dv x bp "
+        f"(E = 0) and fastpfor (exceptions), 32- and 8-row blocks, inactive, "
+        f"single-block and empty slots, family-ceiling pads (Bp > B), a "
+        f"2**23-int window, and Jp = 0")
 
 
 # --------------------------------------------------------------------------
@@ -227,99 +418,196 @@ class Recorder:
         setattr(self.module, self.name, self.inner)
 
 
-def run_main_path(dev, corpus, truth) -> dict:
-    from repro_torch.index import builder, engine
+def _check_answers(what, results, truth, corpus) -> None:
+    for q, res, want in zip(corpus.queries, results, truth):
+        if res.count != len(want) or not np.array_equal(
+                np.sort(res.docs), want[: len(res.docs)]):
+            raise AssertionError(f"{what}: query {q} gave {res.count}, "
+                                 f"brute force {len(want)}")
+
+
+def serve_regime(idx, what, corpus, truth, regime, plan) -> tuple:
+    """Phase 3 then 3b on one index in one regime: the sequential serve and
+    the batched one, each with the launch counts set to 0 just before it
+    and read just after.  Returns (sequential counts, batched counts,
+    seconds of each)."""
+    from repro_torch.index import engine
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    n = len(corpus.queries)
+    n_batches = (n + BATCH - 1) // BATCH
+    skip = regime != "noskip"
+    t0 = time.perf_counter()
+    cache = engine.DecodeCache() if regime == "cache" else None
+    ops.reset_launches()
+    rep = serve.serve_queries(idx, corpus.queries, cache=cache, skip=skip)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    _check_answers(what, rep["results"], truth, corpus)
+    dt = rep["seconds"]
+    passes = 3 if cache is not None else 2
+    note = (f", cache hit rate {cache.hit_rate:.3f}"
+            if cache is not None else "")
+    log(f"{what}: {n} queries all equal to brute force; "
+        f"{n / dt:.2f} q/s, {dt / n * 1e3:.3f} ms/query, "
+        f"{rep['stats'].get('decoded_ints', 0) / n:.0f} decoded "
+        f"ints/query, {rep['stats'].get('skip_folds', 0)} skip folds, "
+        f"{rep['hits']} hits{note}; launches over {passes} passes "
+        + ", ".join(f"{k} {v} ({v / (n * passes):.3f}/query)"
+                    for k, v in counts.items() if v))
+    t_seq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bcache = engine.DecodeCache() if regime == "cache" else None
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    brep = serve.serve_batched(idx, corpus.queries, batch=BATCH, fuse=True,
+                               warmup=True, cache=bcache, skip=skip,
+                               plan=plan)
+    torch.cuda.synchronize()
+    bcounts = ops.launches()
+    _check_answers(f"{what}/batched", brep["results"], truth, corpus)
+    for q, a, b in zip(corpus.queries, brep["results"], rep["results"]):
+        if a.count != b.count or not np.array_equal(a.docs, b.docs):
+            raise AssertionError(f"{what}: batched answer to {q} differs "
+                                 f"from the sequential one")
+    bst, wu, bdt = brep["stats"], brep["warmup"], brep["seconds"]
+    bpasses = wu["passes"] + 1
+    note = (f", cache hit rate {bcache.hit_rate:.3f}"
+            if bcache is not None else "")
+    log(f"{what}/batched: {n} queries all equal to brute force and to the "
+        f"sequential answers; batch {BATCH} fused, {n / bdt:.2f} q/s, "
+        f"{bdt / n * 1e3:.3f} ms/query, "
+        f"{bst.get('n_dispatches', 0) / n_batches:.2f} dispatches/batch, "
+        f"{len(bst.get('signatures', ()))} programs, "
+        f"{bst.get('n_compiles', 0)} compiles in the timed pass (warmup: "
+        f"{wu['n_compiles']} over {wu['n_signatures']} signatures in "
+        f"{wu['passes']} passes, {wu['time_s']:.2f} s, converged "
+        f"{wu['converged']}), {bst.get('decoded_ints', 0) / n:.0f} decoded "
+        f"ints/query, {bst.get('skip_folds', 0)} skip folds, "
+        f"{brep['hits']} hits{note}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; launches over "
+        f"{bpasses} passes " + ", ".join(
+            f"{k} {v} ({v / (n * bpasses):.3f}/query)"
+            for k, v in bcounts.items() if v))
+    return counts, bcounts, t_seq, time.perf_counter() - t0
+
+
+def run_main_path(dev, corpus, truth) -> dict:
+    """Phases 3 and 3b for both codecs and every configuration of
+    ``CELLS``; ``truth`` holds the brute-force answers."""
+    from repro_torch.index import batch as batch_lib, builder
+    from repro_torch.kernels import ops
     totals = {k: 0 for k in ops.launches()}
     per_regime = {}
+    seconds = {"build": 0.0, "sequential": 0.0, "batched": 0.0,
+               "profile": 0.0}
     longest = None
     for codec in ("fastpfor-d1", "bp-d1"):
-        t0 = time.perf_counter()
-        idx = builder.build(corpus.postings, corpus.n_docs, codec_name=codec,
-                            B=16, n_parts=2, device=dev)
-        torch.cuda.synchronize()
-        st = idx.stats()
-        log(f"{codec}: built in {time.perf_counter() - t0:.2f} s, "
-            f"{st['bytes_per_int']:.4f} bytes/int, {st['postings']} postings, "
-            f"{idx.device_bytes()} index bytes on the card, "
-            f"lists {st['codec_counts']}")
-        for regime, cache, skip in (("default", None, True),
-                                    ("cache", engine.DecodeCache(), True),
-                                    ("noskip", None, False)):
-            ops.reset_launches()
-            rep = serve.serve_queries(idx, corpus.queries, cache=cache,
-                                      skip=skip)
-            counts = ops.launches()
-            for k, v in counts.items():
-                totals[k] += v
-            for q, res, want in zip(corpus.queries, rep["results"], truth):
-                if res.count != len(want) or not np.array_equal(
-                        np.sort(res.docs), want[: len(res.docs)]):
-                    raise AssertionError(f"{codec}/{regime}: query {q} gave "
-                                         f"{res.count}, brute force "
-                                         f"{len(want)}")
-            n, dt = len(corpus.queries), rep["seconds"]
-            passes = 3 if cache is not None else 2
-            per_regime[(codec, regime)] = counts
-            note = (f", cache hit rate {cache.hit_rate:.3f}"
-                    if cache is not None else "")
-            log(f"{codec}/{regime}: {n} queries all equal to brute force; "
-                f"{n / dt:.2f} q/s, {dt / n * 1e3:.3f} ms/query, "
-                f"{rep['stats'].get('decoded_ints', 0) / n:.0f} decoded "
-                f"ints/query, {rep['stats'].get('skip_folds', 0)} skip folds, "
-                f"{rep['hits']} hits{note}; launches over {passes} passes "
-                + ", ".join(f"{k} {v} ({v / (n * passes):.3f}/query)"
-                            for k, v in counts.items()))
-        profile_pass(idx, corpus.queries, codec)
-        if codec == "bp-d1":
-            longest = max((tp.payload for p in idx.parts
-                           for tp in p.terms.values()
-                           if tp.kind == "list" and hasattr(tp.payload, "maxes")),
-                          key=lambda pl: pl.n)
-        del idx
+        for wname, B, regimes in CELLS:
+            t0 = time.perf_counter()
+            idx = builder.build(corpus.postings, corpus.n_docs,
+                                codec_name=codec, B=B, n_parts=2, device=dev)
+            torch.cuda.synchronize()
+            st = idx.stats()
+            seconds["build"] += time.perf_counter() - t0
+            log(f"{codec} {wname}: built in {time.perf_counter() - t0:.2f} s,"
+                f" {st['bytes_per_int']:.4f} bytes/int, {st['postings']} "
+                f"postings, {idx.device_bytes()} index bytes on the card, "
+                f"lists {st['codec_counts']}")
+            plan = batch_lib.FusionPlan()    # one serving session per build
+            for regime in regimes:
+                counts, bcounts, t_seq, t_bat = serve_regime(
+                    idx, f"{codec}/{wname}/{regime}", corpus, truth, regime,
+                    plan)
+                seconds["sequential"] += t_seq
+                seconds["batched"] += t_bat
+                for path, c in (("sequential", counts), ("batched", bcounts)):
+                    key = (codec, wname, regime, path)
+                    per_regime[key] = {k: per_regime.get(key, {}).get(k, 0)
+                                       + v for k, v in c.items()}
+                    for k, v in c.items():
+                        totals[k] += v
+            if wname == "B16":
+                t0 = time.perf_counter()
+                profile_pass(idx, corpus.queries, codec)
+                profile_pass(idx, corpus.queries, codec, plan=plan)
+                seconds["profile"] += time.perf_counter() - t0
+                if codec == "bp-d1":
+                    longest = max(
+                        (tp.payload for p in idx.parts
+                         for tp in p.terms.values()
+                         if tp.kind == "list" and hasattr(tp.payload, "maxes")),
+                        key=lambda pl: pl.n)
+            del idx
     for codec in ("fastpfor-d1", "bp-d1"):
-        if per_regime[(codec, "default")]["packed_gallop_batched"] == 0:
-            raise AssertionError(f"K3 never ran in {codec}/default")
+        for wname, _, _ in CELLS:
+            if per_regime[(codec, wname, "default", "sequential")][
+                    "packed_gallop_batched"] == 0:
+                raise AssertionError(f"K3 never ran in {codec}/{wname}/default")
+        if per_regime[(codec, "B0", "default", "batched")][
+                "packed_fold_batched"] == 0:
+            raise AssertionError(f"K5 never ran in {codec}/B0/default/batched")
     for regime in ("cache", "noskip"):
-        if sum(per_regime[(c, regime)]["gallop_tiles"]
+        if sum(per_regime[(c, "B16", regime, "sequential")]["gallop_tiles"]
                for c in ("fastpfor-d1", "bp-d1")) == 0:
             raise AssertionError(f"K2 never ran in the {regime} regime")
-    if sum(per_regime[("bp-d1", r)]["unpack_blocks"]
-           for r in ("default", "cache", "noskip")) == 0:
+        if sum(per_regime[(c, "B16", regime, "batched")]["decoded_fold_batched"]
+               for c in ("fastpfor-d1", "bp-d1")) == 0:
+            raise AssertionError(f"K4 never ran in the {regime}/batched "
+                                 f"regime")
+    if sum(v["unpack_blocks"] for k, v in per_regime.items()
+           if k[0] == "bp-d1") == 0:
         raise AssertionError("K1 never ran in the bp-d1 build")
-    log(f"launch counts over the main path: {totals}; peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes")
+    log(f"launch counts over the main path (sequential + batched): {totals}; "
+        f"seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"launches": totals, "longest": longest}
 
 
-def profile_pass(idx, queries, codec: str) -> None:
-    """One more default-regime pass under torch.profiler: the device's busy
-    time (the sum of its kernels' and copies' own times) against the wall
-    time of the pass, and the ops that take most of the device time."""
+def profile_pass(idx, queries, codec: str, plan=None) -> None:
+    """One more default-regime pass under torch.profiler — sequential, or
+    batched with ``plan`` — the device's busy time against the wall time of
+    the pass, the kernels and copies that take most of it, and the host ops
+    that launched most of it.  Busy time adds up only the device's own
+    events (kernels, copies, memsets): a host op's self device time is the
+    same kernels seen again from the op that launched them."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.index import engine
+    from repro_torch.index import batch as batch_lib, engine
+    what = f"{codec}/default" + ("/batched" if plan is not None else "")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for q in queries:
-            engine.query(idx, q)
+        if plan is None:
+            for q in queries:
+                engine.query(idx, q)
+        else:
+            for lo in range(0, len(queries), BATCH):
+                batch_lib.execute_batch(idx, queries[lo: lo + BATCH],
+                                        plan=plan)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0))
-    busy_us = sum(dev(e) for e in events)
+    dev = lambda e: e.self_device_time_total
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(dev(e) for e in on_dev)
     if busy_us <= 0:
-        log(f"{codec}/default profile: the profiler saw no device time "
-            f"(device idle share not measured)")
+        log(f"{what} profile: the profiler saw no device time (device idle "
+            f"share not measured)")
         return
-    top = sorted(events, key=dev, reverse=True)[:6]
-    log(f"{codec}/default profile: wall {wall_us / 1e3:.3f} ms for "
+    top = sorted(on_dev, key=dev, reverse=True)[:6]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=dev, reverse=True)[:4]
+    api = {k: sum(e.count for e in events if e.key == k)
+           for k in ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                     "cudaLaunchKernel")}
+    log(f"{what} profile: wall {wall_us / 1e3:.3f} ms for "
         f"{len(queries)} queries under the profiler, device busy "
         f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}; "
+        f"host API calls {api}; "
         f"top device time: " + "; ".join(
-            f"{e.key[:60]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in top))
+            f"{e.key[:60]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in top)
+        + "; launched by: " + "; ".join(
+            f"{e.key[:40]} {dev(e) / 1e3:.3f} ms x{e.count}" for e in host))
 
 
 # --------------------------------------------------------------------------
@@ -419,6 +707,99 @@ def time_k3(args, kwargs) -> dict:
                      f"{kwargs['mode']}"}
 
 
+def _fold_work(valid, active, hit, N: int) -> tuple[int, int, list]:
+    """The search work of a mask fold as this run's data needs it: fold j
+    searches only the candidates still valid in its active rows, each with
+    ceil(log2 N) dependent loads, touching at most min(N, live · rounds)
+    ints of the row's list.  ``hit(j)`` is fold j's (B, M) match mask.
+    Returns (bytes of the lists touched, operations, live candidates
+    searched by each fold)."""
+    rounds = max((N - 1).bit_length(), 1)
+    nbytes = nops = 0
+    lives = []
+    v = valid
+    for j in range(active.shape[0]):
+        act = active[j][:, None]
+        live = (v & act).sum(-1).to(torch.int64)
+        lives.append(int(live.sum()))
+        nops += lives[-1] * rounds * 4
+        nbytes += int(torch.clamp(live * rounds, max=N).sum()) * 4
+        v = v & torch.where(act, hit(j), True)
+    return nbytes, nops, lives
+
+
+def time_k4(args, kwargs) -> dict:
+    from repro_torch.core import intersect as its
+    from repro_torch.kernels import megakernel
+    r, valid, folds, active = args
+    kern = lambda: megakernel.decoded_fold_batched(*args)
+    plain = lambda: megakernel.decoded_fold_plain(*args)
+    J, B, N = folds.shape
+    M = r.shape[1]
+    fold_bytes, nops, lives = _fold_work(
+        valid, active, lambda j: its.intersect_gallop(r, folds[j]), N)
+    # r, valid and the mask once each, the active flags, the touched folds
+    b_ms, b_by = bound(B * M * 6 + J * B + fold_bytes, nops)
+    # the time depends on the live candidates (a dead one stops early), so
+    # the shape note carries them; three rounds show the spread in one call
+    rounds = [cuda_ms(kern) for _ in range(3)]
+    return {"max_abs_err": max_abs_err(kern(), plain()),
+            "ms": sorted(rounds)[1], "plain_ms": cuda_ms(plain, iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"J={J} B={B} M={M} N={N}, "
+                     f"{int(active.sum())} active slots, "
+                     f"{int(valid.sum())} valid candidates, live per fold "
+                     f"{lives}, rounds {rounds} ms"}
+
+
+def time_k5(args, kwargs) -> dict:
+    from repro_torch.core import intersect as its
+    from repro_torch.kernels import megakernel
+    (r, valid, words, widths, offsets, maxes, blk, exc_pos, exc_add,
+     active) = args
+    kern = lambda: megakernel.packed_fold_batched(*args, **kwargs)
+    plain = lambda: megakernel.packed_fold_plain(*args, **kwargs)
+    rows = kwargs["block_rows"]
+    per = rows * 128
+    Jp, B, C = blk.shape
+    M, Kp = r.shape[1], widths.shape[2]
+    ids = blk.to(torch.int64)
+    real = (ids < Kp) & active[:, :, None]
+    wid = torch.gather(widths.to(torch.int64), 2, ids.clamp(max=Kp - 1))
+    ep = exc_pos.to(torch.int64)
+    touched = 0
+    for j in range(Jp):
+        for b in range(B):
+            if bool(active[j, b]):
+                eb = torch.div(ep[j, b], per, rounding_mode="floor")
+                touched += int(((ep[j, b] >= 0)
+                                & torch.isin(eb, ids[j, b][real[j, b]])).sum())
+    _, fold_ops, lives = _fold_work(valid, active, lambda j: its.intersect_packed_batch(
+        r, words[j], widths[j], offsets[j], maxes[j], blk[j], exc_pos[j],
+        exc_add[j], **kwargs), C * per)
+    # as for K3, the window is scratch and not counted: the candidate
+    # blocks' words and metadata, their exceptions, r, valid, the mask and
+    # the active flags
+    nbytes = (int((wid * real).sum()) * 512 + int(real.sum()) * 16
+              + touched * 8 + B * M * 6 + Jp * B)
+    nops = int(real.sum()) * per * 12 + fold_ops
+    b_ms, b_by = bound(nbytes, nops)
+    window = Jp * B * C * per * 4
+    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, iters=3, warm=1), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "window_bytes": window,
+            "shape": f"Jp={Jp} B={B} M={M} C={C} blocks x {rows} rows, "
+                     f"Kp={Kp}, {int(active.sum())} active slots, "
+                     f"{int(real.sum())} real candidate blocks, live per "
+                     f"fold {lives}, mode {kwargs['mode']}"}
+
+
+def phase_done(k: int, t0: float) -> float:
+    now = time.perf_counter()
+    log(f"phase {k} done in {now - t0:.1f} s")
+    return now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -431,29 +812,41 @@ def main() -> int:
         f"{name}, compute capability {torch.cuda.get_device_capability(0)}")
     from repro_torch.core import bitpack
     from repro_torch.index import corpus as corpus_lib, engine
-    from repro_torch.kernels import _build, bitunpack, intersect_gallop, ops
+    from repro_torch.kernels import (_build, bitunpack, intersect_gallop,
+                                     megakernel)
     from repro_torch.launch import serve
 
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"built {sorted(libs)} with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # a few queries through the CLI entry point, at its default size
-    serve.main(["--queries", "8", "--cache", "--shared-vocab"])
+    seq = serve.main(["--queries", "8", "--cache", "--shared-vocab"])
+    bat = serve.main(["--queries", "8", "--cache", "--shared-vocab",
+                      "--batch", "4", "--warmup"])
+    if bat["hits"] != seq["hits"]:
+        raise AssertionError("serve --batch gave other hits than the "
+                             "sequential serve")
+    t_phase = phase_done(1, t_phase)
 
     t0 = time.perf_counter()
-    corpus = corpus_lib.synthesize(n_docs=N_DOCS, n_queries=N_QUERIES, seed=5,
-                                   shared_vocab=True)
+    corpus = corpus_lib.synthesize(n_docs=N_DOCS, n_queries=N_QUERIES,
+                                   seed=5, shared_vocab=True)
     truth = [engine.brute_force(corpus.postings, q) for q in corpus.queries]
+    lens = sorted(len(p) for p in corpus.postings)
     log(f"corpus: {corpus.n_docs} docs, {corpus.n_terms} terms, "
-        f"{sum(len(p) for p in corpus.postings)} postings, longest list "
-        f"{max(len(p) for p in corpus.postings)}, {len(corpus.queries)} "
-        f"queries (no cut); synthesis + brute force "
+        f"{sum(lens)} postings, lists {lens[0]} … {lens[-1]}, "
+        f"{len(corpus.queries)} queries (no cut); synthesis + brute force "
         f"{time.perf_counter() - t0:.1f} s")
 
     check_k2(dev)
-    check_k3(dev)
+    k3 = check_k3(dev)
+    check_k4(dev)
+    check_k5(dev, k3)
+    del k3
+    t_phase = phase_done(2, t_phase)
 
     recorders = [
         Recorder(bitunpack, "unpack_blocks", lambda *a, **k: a[2].shape[0]),
@@ -461,6 +854,11 @@ def main() -> int:
                  lambda r, f: r.shape[0] * max((f.shape[0] - 1).bit_length(), 1)),
         Recorder(intersect_gallop, "packed_gallop_batched",
                  lambda *a, **k: a[5].shape[1] * a[0].shape[1]),
+        Recorder(megakernel, "decoded_fold_batched",
+                 lambda r, v, f, a: f.shape[0] * r.numel()
+                 * max((f.shape[2] - 1).bit_length(), 1)),
+        Recorder(megakernel, "packed_fold_batched",
+                 lambda *a, **k: a[6].numel()),
     ]
     torch.cuda.reset_peak_memory_stats()
     main_path = run_main_path(dev, corpus, truth)
@@ -471,11 +869,17 @@ def main() -> int:
         ("longest list of the bp-d1 index", main_path["longest"]),
         ("longest posting list of the corpus, encoded bp-d1",
          bitpack.encode(longest, mode="d1").to(dev))])
+    t_phase = phase_done(3, t_phase)
 
     rows = []
     timers = {"unpack_blocks": time_k1, "gallop_tiles": time_k2,
-              "packed_gallop_batched": time_k3}
+              "packed_gallop_batched": time_k3,
+              "decoded_fold_batched": time_k4,
+              "packed_fold_batched": time_k5}
     for rec in recorders:
+        if rec.best is None:
+            raise AssertionError(f"{rec.name} was never called on the main "
+                                 f"path")
         res = timers[rec.name](*rec.best)
         rows.append((rec.name, res))
         if rec.name == "gallop_tiles":
@@ -486,12 +890,14 @@ def main() -> int:
         if res["max_abs_err"] != 0:
             raise AssertionError(f"{kname}: kernel differs from plain at the "
                                  f"main-path shape")
-        log(f"{kname} at {res.pop('shape')}: " + ", ".join(
-            f"{k} {v}" for k, v in res.items()))
+        notes = {k: res.pop(k) for k in ("shape", "window_bytes") if k in res}
+        log(f"{kname} at {notes.pop('shape')}: " + ", ".join(
+            f"{k} {v}" for k, v in {**res, **notes}.items()))
         source, replaces = REPLACES[kname]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": main_path["launches"][kname], **res})
+    phase_done(4, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,18 +30,34 @@ def probe(words: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor) -> torch.
     return mask & (bit == 1)
 
 
+def probe_batched(words: torch.Tensor, vals: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """``probe`` per row: (B, W) words, (B, M) vals and mask, the word of
+    each value gathered on the last axis."""
+    idx = (vals >> 5).clamp(0, words.shape[-1] - 1).to(torch.int64)
+    w = torch.gather(words, -1, idx)
+    bit = (w >> (vals & 31)) & 1
+    return mask & (bit == 1)
+
+
 def bitmap_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a & b
 
 
-def popcount(words: torch.Tensor) -> int:
-    """Number of set bits (SWAR popcount on int64 lanes)."""
+def popcount_rows(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each row of (..., W) words as an int64 tensor on the
+    words' device (SWAR popcount on int64 lanes; no host sync)."""
     x = to_u32(words)
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     x = (x * 0x01010101) & 0xFFFFFFFF
-    return int((x >> 24).sum())
+    return (x >> 24).sum(-1)
+
+
+def popcount(words: torch.Tensor) -> int:
+    """Number of set bits of a (W,) word array, as a host int."""
+    return int(popcount_rows(words))
 
 
 def extract_np(words: np.ndarray) -> np.ndarray:

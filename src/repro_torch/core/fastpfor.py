@@ -143,7 +143,10 @@ def decode_device(flat_words, widths, offsets, seeds, exc_pos, exc_add,
     dflat = d.reshape(-1)
     pos = exc_pos.to(torch.int64)
     ok = (pos >= 0) & (pos < dflat.shape[0])
-    dflat = dflat.index_add(0, pos[ok], to_u32(exc_add)[ok])
+    # dropped entries add 0 at position 0: a boolean index would read the
+    # count of kept entries back to the host
+    dflat = dflat.index_add(0, torch.where(ok, pos, 0),
+                            torch.where(ok, to_u32(exc_add), 0))
     d = dflat.reshape(K, block_rows, LANES)
     return to_i32(deltas_lib.prefix_sum(d, seeds, mode))
 

@@ -1,0 +1,669 @@
+"""Batched query execution: shape-bucketed scheduling and SvS on the card.
+
+Port of ``src/repro/index/batch.py``, its host-assembled (no
+``ResidentPool``), single-device path, with the reference's
+``backend="pallas"`` program:
+
+  1. **Schedule.** Every (query, index-part) work item gets a shape
+     signature (``GroupKey``): pow2 bucket of the seed list M, of the longest
+     decoded fold N, bitmap word count W, the ratio algorithm, and the
+     packed block layout of its long skip-capable folds (k/t/c/e pads, block
+     rows, delta mode).  Terms resolve through ``index.source``: short lists
+     decode on the card (and cache), long skip-capable lists stay packed with
+     their candidate block ids searched on the host.  The seeds' values
+     cross to the host once per batch, all together, for that search.
+  2. **Fuse.** ``fuse_groups`` coarsens keys into families — (kind, packed
+     block geometry) — at family-ceiling buckets, kept monotone across
+     batches by a sticky ``FusionPlan``, so a batch launches O(#families)
+     programs.
+  3. **Execute.** Each group chunk's operands are stacked on the card: seed
+     rows into a SENTINEL-filled (Bp, M) tensor, decoded folds into a
+     SENTINEL-filled (J, Bp, N) stack, packed folds into zero-extended
+     (Jp, Bp, ...) stacks from the memoized device layouts
+     (``source.cached_layout_dev``), bitmaps into an all-ones (Jb, Bp, W)
+     stack.  Only the candidate block ids and the active flags cross to the
+     card, without waiting for it.  The program ANDs K4 (decoded folds,
+     ``ops.intersect_fold_batch``), K5 (packed folds,
+     ``ops.intersect_packed_fold``) and the bitmap probes into one validity
+     mask over the seed row; all-bitmap items AND their words and popcount
+     each row.  Nothing in ``launch_groups`` waits for the card: CUDA's
+     asynchronous launch gives the reference's launch/collect split.
+  4. **Aggregate.** ``collect_batch`` copies each chunk's result to the host
+     once (values and count of each row in one tensor) and re-assembles
+     per-query results in part order, byte-identical to ``engine.query``.
+
+Invariants, as in the reference: a ``GroupKey`` describes shapes only;
+padding (SENTINEL rows, inactive fold slots, all-pad packed slots, all-ones
+probe rows) never contributes to a real row's result; results concatenate
+in part order.
+
+Program count.  The reference's ``_compile_count`` reads JAX's jit caches.
+The port compiles nothing per shape: its kernels are built once per process
+by ``nvcc`` and take every shape at run time.  So ``_compile_count`` counts
+the distinct program signatures (kind, key, Bp, J, Jb, Jp) launched so far
+in the process, plus the kernel libraries this process built
+(``kernels._build.BUILDS``).  A steady state after ``warmup`` reports 0
+exactly when it launches no shape and builds no library that warmup did not.
+
+Not ported here (ROADMAP): the pool and arena paths (``ResidentPool``,
+``_stack_packed_arena``, the pool branches of the assemblers), the
+interpret-mode occupancy guard (``PALLAS_MIN_OCCUPANCY``), the JAX-only
+candidate donation and row stackers, and the ``backend="jax"`` program: the
+port has no ``backend`` switch — the kernels run on the card and their plain
+versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitmap as bm
+from repro_torch.core import codecs as codec_lib
+from repro_torch.core import intersect as its
+from repro_torch.index import source
+from repro_torch.index.builder import HybridIndex
+from repro_torch.index.engine import QueryResult
+from repro_torch.kernels import _build, ops
+
+MAX_GROUP_SIZE = 128          # hard cap on items per device program
+GROUP_INT_BUDGET = 1 << 25    # cap operand ints per program: B·(J·N+M+J_b·W)
+BATCH_TILED_MAX_RATIO = 4.0   # the reference's batched ratio rule
+SENT = int(its.SENTINEL)
+
+# every program signature launched in this process (see "Program count")
+_PROGRAMS: set = set()
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupKey:
+    """Shape signature shared by all work items of one device program.
+    Term counts are not part of the key: queries of different arity merge
+    into one program, padded with inactive folds and all-ones bitmap rows.
+    ``packed`` is (k_pad, t_pad, c_pad, e_pad, block_rows, mode); ``fused``
+    holds the arity ceilings of a fused key — (J, Jb, Jp) for 'svs', (J,)
+    for 'bitmap' — and is None on a scheduled key."""
+    kind: str              # 'svs' (≥1 list term) | 'bitmap' (all-bitmap)
+    m_bucket: int          # candidate buffer length M
+    n_bucket: int          # decoded fold-list pad length N
+    words: int             # bitmap word count W (0 when no bitmaps)
+    algo: str              # 'tiled' | 'gallop' | '-'
+    packed: tuple | None = None
+    fused: tuple | None = None
+
+
+@dataclasses.dataclass
+class _Item:
+    qi: int                            # query index within the batch
+    pi: int                            # index-part ordinal (aggregation order)
+    doc_lo: int
+    r: torch.Tensor | None = None      # (M,) seed values on the card
+    folds: list | None = None          # J × decoded (own pow2 length,) rows
+    psrc: list | None = None           # Jp × (device layout at the list's
+                                       # self pads, raw candidate block ids)
+    bm_words: list | None = None       # J_b × (W,) bitmap word rows
+
+
+def _bucket_rows(b: int) -> int:
+    """Batch-dim bucket: ~×1.5 geometric ladder (1,2,3,4,6,9,13,19,28,…)."""
+    size = 1
+    while size < b:
+        size = size * 3 // 2 if size >= 2 else size + 1
+    return size
+
+
+def _n_bitmaps(it: _Item) -> int:
+    return len(it.bm_words) if it.bm_words is not None else 0
+
+
+def _seeds_to_host(seeds: list) -> list[np.ndarray]:
+    """The valid values of every seed, copied to the host in one transfer."""
+    if not seeds:
+        return []
+    flat = torch.cat([s.vals[: s.n] for s in seeds]).cpu().numpy()
+    return np.split(flat, np.cumsum([s.n for s in seeds])[:-1])
+
+
+def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
+             skip: bool = True, stats: dict | None = None
+             ) -> dict[GroupKey, list[_Item]]:
+    """Bucket every (query, part) work item by shape signature.  Terms
+    resolve through the posting-source layer on the index's device; items
+    carry device tensors.  The seeds of items with packed folds come to the
+    host in one copy for the candidate block-id search."""
+    codec = codec_lib.get_codec(index.codec_name)
+    work = []      # per item: (qi, pi, part, seed, dec, packed, bitmap rows)
+    for qi, term_ids in enumerate(queries):
+        for pi, part in enumerate(index.parts):
+            tps = [part.terms[t] for t in term_ids]
+            if any(tp.kind == "empty" for tp in tps):
+                continue
+            pairs = sorted(((t, tp) for t, tp in zip(term_ids, tps)
+                            if tp.kind == "list"), key=lambda p: p[1].n)
+            bm_words = [tp.payload for tp in tps if tp.kind == "bitmap"]
+            if not pairs:
+                work.append((qi, pi, part, None, None, None, bm_words))
+                continue
+            seed_t, seed_tp = pairs[0]
+            seed = source.resolve(part, seed_t, seed_tp, codec, cache=cache,
+                                  r_count=None, stats=stats)
+            dec, packed = [], []
+            for t, tp in pairs[1:]:
+                src = source.resolve(part, t, tp, codec, cache=cache,
+                                     r_count=seed_tp.n, skip=skip,
+                                     stats=stats)
+                (packed if isinstance(src, source.PackedSource)
+                 else dec).append((t, tp, src))
+            dec = [s for _, _, s in dec]
+            keep = []
+            if packed:
+                # one block geometry per fold stack: keep the longest fold's
+                # (block_rows, mode) and decode the rare mismatch, uncached
+                ref = max(packed, key=lambda p: p[2].n)[2]
+                for t, tp, s in packed:
+                    if (s.block_rows, s.mode) == (ref.block_rows, ref.mode):
+                        keep.append(s)
+                    else:
+                        dec.append(source.resolve(part, t, tp, codec,
+                                                  cache=None, skip=False,
+                                                  stats=stats))
+            work.append((qi, pi, part, seed, dec, keep, bm_words or None))
+    host = iter(_seeds_to_host([w[3] for w in work if w[5]]))
+    groups: dict[GroupKey, list[_Item]] = defaultdict(list)
+    for qi, pi, part, seed, dec, keep, bm_words in work:
+        W = bm_words[0].shape[0] if bm_words else 0
+        if seed is None:
+            key = GroupKey("bitmap", 0, 0, W, "-")
+            groups[key].append(_Item(qi, pi, part.doc_lo, bm_words=bm_words))
+            continue
+        M = seed.vals.shape[0]
+        psig = psrc = None
+        if keep:
+            r_valid = next(host)
+            cand = [(s, s.candidate_block_ids(r_valid)) for s in keep]
+            k_pad = max(s.self_pads()[0] for s, _ in cand)
+            t_pad = max(s.self_pads()[1] for s, _ in cand)
+            c_pad = max(its.pow2_bucket(len(b), floor=source.CAND_FLOOR)
+                        for _, b in cand)
+            e_max = max(s.num_exceptions for s, _ in cand)
+            e_pad = its.pow2_bucket(e_max, floor=1) if e_max else 0
+            psig = (k_pad, t_pad, c_pad, e_pad, keep[0].block_rows,
+                    keep[0].mode)
+            psrc = [(source.cached_layout_dev(s, s.self_pads(), stats), b)
+                    for s, b in cand]
+            # decoded_ints of packed folds is counted at launch, at the
+            # launching key's c_pad (fusion may raise it)
+            source._bump(stats, "skip_folds", len(psrc))
+        N = max((s.vals.shape[0] for s in dec), default=128)
+        algo = "tiled" if N / M <= BATCH_TILED_MAX_RATIO else "gallop"
+        key = GroupKey("svs", M, N, W, algo, psig)
+        groups[key].append(_Item(qi, pi, part.doc_lo, r=seed.vals,
+                                 folds=[s.vals for s in dec], psrc=psrc,
+                                 bm_words=bm_words))
+    return groups
+
+
+# --------------------------------------------------------------------------
+# device programs (one per GroupKey chunk)
+# --------------------------------------------------------------------------
+
+def _svs_program(r, folds, fold_active, pk, pk_active, words, mode: str,
+                 block_rows: int) -> torch.Tensor:
+    """Decoded folds (K4) → packed folds (K5) → bitmap probes, each ANDed
+    into one validity mask over the seed rows ``r`` (Bp, M).  Returns
+    (Bp, M + 1) int32: each row's surviving values (SENTINEL elsewhere,
+    sorted but not compacted) and, in the last column, their count."""
+    valid = r != SENT
+    valid = ops.intersect_fold_batch(r, valid, folds, fold_active)
+    if pk is not None:
+        valid = ops.intersect_packed_fold(r, valid, pk, pk_active, mode=mode,
+                                          block_rows=block_rows)
+    if words is not None:
+        for w in words:
+            valid = bm.probe_batched(w, r, valid)
+    counts = valid.sum(-1, dtype=torch.int32)
+    return torch.cat([torch.where(valid, r, SENT), counts[:, None]], 1)
+
+
+def _bitmap_and_program(words) -> torch.Tensor:
+    """All-bitmap items: AND-reduce (Bp, J, W) words.  Returns (Bp, W + 1)
+    int32: the ANDed words and, in the last column, their popcount."""
+    out = words[:, 0]
+    for j in range(1, words.shape[1]):
+        out = out & words[:, j]
+    counts = bm.popcount_rows(out).to(torch.int32)
+    return torch.cat([out, counts[:, None]], 1)
+
+
+def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device):
+    """Stack the items' packed layouts into (Jp, Bp, ...) operands on the
+    card.  Each slot zero-extends its self-padded device layout into the
+    key's pads (which fusion may have raised): pad blocks have width 0 and
+    are never candidates.  Candidate block ids pad with the out-of-range
+    id ``k_pad`` (all-SENTINEL decode); inactive slots stay all-pad and are
+    masked by the active flags.  Returns (pk, active): pk in K5's order
+    (the reference's ``_compose_pk`` order) — words, widths, offsets,
+    maxes, candidate block ids, exc_pos, exc_add."""
+    k_pad, t_pad, c_pad, e_pad, _, _ = key.packed
+    Jp = (key.fused[2] if key.fused
+          else max((len(it.psrc) for it in items), default=0))
+    z = dict(dtype=torch.int32, device=device)
+    # in the order of a device layout: words, widths, offsets, maxes,
+    # exc_pos, exc_add
+    stacked = [torch.zeros((Jp, Bp, t_pad, 128), **z),
+               torch.zeros((Jp, Bp, k_pad), **z),
+               torch.zeros((Jp, Bp, k_pad), **z),
+               torch.zeros((Jp, Bp, k_pad), **z),
+               torch.full((Jp, Bp, e_pad), -1, **z),
+               torch.zeros((Jp, Bp, e_pad), **z)]
+    PBk = np.full((Jp, Bp, c_pad), k_pad, np.int32)
+    active = np.zeros((Jp, Bp), bool)
+    for b, it in enumerate(items):
+        for j, (lay, blk) in enumerate(it.psrc):
+            for dst, src in zip(stacked, lay):
+                if src.shape[0]:
+                    dst[j, b, : src.shape[0]] = src
+            PBk[j, b, : blk.shape[0]] = blk
+            active[j, b] = True
+    pk = (*stacked[:4], source.to_device(PBk, device), *stacked[4:])
+    return pk, source.to_device(active, device)
+
+
+def _assemble_svs(key: GroupKey, items: list[_Item]):
+    """Stack the operands of one svs group chunk on the card.  Rows narrower
+    than the key's buckets extend with SENTINEL / zero-word filler, inert by
+    the padding invariant; fused keys pin the arity ceilings."""
+    device = items[0].r.device
+    Bp = _bucket_rows(len(items))
+    if key.fused:
+        J, Jb, _ = key.fused
+    else:
+        J = max(len(it.folds) for it in items)
+        Jb = max(_n_bitmaps(it) for it in items)
+    R = torch.full((Bp, key.m_bucket), SENT, dtype=torch.int32, device=device)
+    F = torch.full((J, Bp, key.n_bucket), SENT, dtype=torch.int32,
+                   device=device)
+    active = np.zeros((J, Bp), dtype=bool)
+    for b, it in enumerate(items):
+        R[b, : it.r.shape[0]] = it.r
+        for jj, fold in enumerate(it.folds):
+            F[jj, b, : fold.shape[0]] = fold
+            active[jj, b] = True
+    W = None
+    if Jb:
+        # inactive slots are all-ones rows, the probe identity; the zero
+        # extension past a real row's own W is never probed
+        W = torch.full((Jb, Bp, key.words), -1, dtype=torch.int32,
+                       device=device)
+        for b, it in enumerate(items):
+            for jj, w in enumerate(it.bm_words or ()):
+                W[jj, b, : w.shape[0]] = w
+                W[jj, b, w.shape[0]:] = 0
+    pkparts = (_stack_packed(key, items, Bp, device)
+               if key.packed is not None else None)
+    return (R, F, source.to_device(active, device), pkparts, W, Bp, J, Jb)
+
+
+def _launch_svs_group(key: GroupKey, items: list[_Item],
+                      stats: dict | None) -> torch.Tensor:
+    R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items)
+    pk = pk_active = None
+    mode, rows, Jp = "d1", 32, 0
+    if pkparts is not None:
+        pk, pk_active = pkparts
+        Jp = pk[0].shape[0]
+        rows, mode = key.packed[4], key.packed[5]
+        # every active packed slot decodes c_pad blocks at the LAUNCHING
+        # key's bucket
+        source._bump(stats, "decoded_ints",
+                     sum(len(it.psrc) for it in items)
+                     * key.packed[2] * rows * 128)
+    if stats is not None:
+        stats.setdefault("signatures", set()).add(("svs", key, Bp, J, Jb))
+    _PROGRAMS.add(("svs", key, Bp, J, Jb, Jp))
+    return _svs_program(R, F, active, pk, pk_active, W, mode, rows)
+
+
+def _assemble_bitmap(key: GroupKey, items: list[_Item]):
+    """(Bp, J, W) word stack of one all-bitmap chunk on the card: real rows
+    pad missing terms with all-ones (the AND identity) over their own W;
+    padded rows, and every row past its own W, stay zero (popcount 0)."""
+    Bp = _bucket_rows(len(items))
+    J = (key.fused[0] if key.fused
+         else max(_n_bitmaps(it) for it in items))
+    device = items[0].bm_words[0].device
+    words = torch.zeros((Bp, J, key.words), dtype=torch.int32, device=device)
+    for b, it in enumerate(items):
+        wr = it.bm_words[0].shape[0]
+        words[b, :, :wr] = -1
+        for jj, w in enumerate(it.bm_words):
+            words[b, jj, :wr] = w
+    return words, Bp, J
+
+
+def _launch_bitmap_group(key: GroupKey, items: list[_Item],
+                         stats: dict | None) -> torch.Tensor:
+    words, Bp, J = _assemble_bitmap(key, items)
+    if stats is not None:
+        stats.setdefault("signatures", set()).add(("bm", key, Bp, J))
+    _PROGRAMS.add(("bm", key, Bp, J, 0, 0))
+    return _bitmap_and_program(words)
+
+
+def _chunk_size(key: GroupKey, items: list[_Item],
+                max_group_size: int) -> int:
+    """Items per device program: flat cap ∧ operand-int budget (so huge J·N
+    stacks, packed words and K5's decode window shrink the batch instead of
+    exhausting device memory).  Fused keys budget at their arity ceilings."""
+    if key.kind == "bitmap":
+        J = (key.fused[0] if key.fused else
+             max(_n_bitmaps(it) for it in items))
+        per_item = J * key.words
+    else:
+        if key.fused:
+            J, Jb, Jp = key.fused
+        else:
+            J = max(len(it.folds) for it in items)
+            Jb = max(_n_bitmaps(it) for it in items)
+        per_item = J * key.n_bucket + key.m_bucket + Jb * key.words
+        if key.packed is not None:
+            k_pad, t_pad, c_pad, e_pad, rows, _ = key.packed
+            if not key.fused:
+                Jp = max(len(it.psrc) for it in items)
+            # compressed words + per-block metadata + K5's decode window
+            # (c_pad blocks of rows×128 per slot)
+            per_item += Jp * (t_pad * 128 + 3 * k_pad + c_pad
+                              + 2 * e_pad + c_pad * rows * 128)
+    return max(1, min(max_group_size, GROUP_INT_BUDGET // max(per_item, 1)))
+
+
+# --------------------------------------------------------------------------
+# megagroup fusion
+# --------------------------------------------------------------------------
+
+def _pow2_ceil(x: int) -> int:
+    """Next power of two ≥ x (0 stays 0): fused arity ceilings."""
+    return its.pow2_bucket(x, floor=1) if x > 0 else 0
+
+
+class FusionPlan:
+    """Sticky fused-dimension ceilings, one entry per signature family.
+    Every batch raises its family's dims to at least everything seen before,
+    so fused signatures converge to a fixed point.  Create one per serving
+    session and pass it to every execute call."""
+
+    def __init__(self):
+        self.dims: dict[tuple, list[int]] = {}
+
+    def raised(self, famid: tuple, dims: tuple) -> tuple:
+        cur = self.dims.get(famid)
+        if cur is None:
+            self.dims[famid] = cur = list(dims)
+        else:
+            for i, d in enumerate(dims):
+                if d > cur[i]:
+                    cur[i] = d
+        return tuple(cur)
+
+    def covers(self, famid: tuple, dims: tuple) -> bool:
+        """Read-only peek: True iff the family is known and every dim is
+        within its sticky ceiling."""
+        cur = self.dims.get(famid)
+        return cur is not None and all(d <= c for d, c in zip(dims, cur))
+
+
+def _families(groups: dict[GroupKey, list[_Item]]) -> dict[tuple, list]:
+    """Scheduled groups by signature family: (kind, packed block geometry)."""
+    fams: dict[tuple, list] = {}
+    for key, items in groups.items():
+        geom = None if key.packed is None else (key.packed[4], key.packed[5])
+        fams.setdefault((key.kind, geom), []).append((key, items))
+    return fams
+
+
+def _family_dims(kind: str, geom, members: list) -> tuple:
+    """Ceiling dims of one family: bitmap -> (W, Jb); svs ->
+    (M, N, W, J, Jb[, k, t, c, e, Jp])."""
+    items = [it for _, mi in members for it in mi]
+    if kind == "bitmap":
+        return (max(k.words for k, _ in members),
+                _pow2_ceil(max(_n_bitmaps(it) for it in items)))
+    dims = [max(k.m_bucket for k, _ in members),
+            max(k.n_bucket for k, _ in members),
+            max(k.words for k, _ in members),
+            _pow2_ceil(max(len(it.folds) for it in items)),
+            _pow2_ceil(max(_n_bitmaps(it) for it in items))]
+    if geom is not None:
+        dims += [max(k.packed[i] for k, _ in members) for i in range(4)]
+        dims.append(_pow2_ceil(max(len(it.psrc) for it in items)))
+    return tuple(dims)
+
+
+def plan_covers(groups: dict[GroupKey, list[_Item]],
+                plan: FusionPlan | None) -> bool:
+    """True iff fusing ``groups`` under ``plan`` would raise no sticky
+    ceiling (a read-only peek; evaluate before ``fuse_groups``)."""
+    if plan is None:
+        return False
+    return all(plan.covers((kind, geom), _family_dims(kind, geom, members))
+               for (kind, geom), members in _families(groups).items())
+
+
+def fuse_groups(groups: dict[GroupKey, list[_Item]],
+                plan: FusionPlan | None = None,
+                stats: dict | None = None) -> dict[GroupKey, list[_Item]]:
+    """Coarsen scheduled GroupKeys into signature families and merge each
+    family's items along the batch-row axis.  Every dim outside the family
+    identity is raised to the family ceiling (and by the sticky ``plan``);
+    padding is inert, so fused == unfused byte for byte.  Fused svs keys
+    force ``algo='gallop'``, as the reference's do."""
+    fused: dict[GroupKey, list[_Item]] = {}
+    for (kind, geom), members in _families(groups).items():
+        items = [it for _, mi in members for it in mi]
+        dims = _family_dims(kind, geom, members)
+        if plan is not None:
+            dims = plan.raised((kind, geom), dims)
+        if kind == "bitmap":
+            w, jb = dims
+            fkey = GroupKey("bitmap", 0, 0, w, "-", fused=(jb,))
+        else:
+            m, n, w, j, jb = dims[:5]
+            packed = (tuple(dims[5:9]) + geom) if geom is not None else None
+            jp = dims[9] if geom is not None else 0
+            fkey = GroupKey("svs", m, n, w, "gallop", packed,
+                            fused=(j, jb, jp))
+        fused[fkey] = items
+    if stats is not None:
+        stats["n_sched_groups"] = (stats.get("n_sched_groups", 0)
+                                   + len(groups))
+        stats["n_fused_groups"] = (stats.get("n_fused_groups", 0)
+                                   + len(fused))
+    return fused
+
+
+def _compile_count() -> int:
+    """Program signatures launched so far plus kernel libraries built (see
+    "Program count" in the module docstring)."""
+    return len(_PROGRAMS) + _build.BUILDS
+
+
+# --------------------------------------------------------------------------
+# launch / collect and the public entry point
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PendingBatch:
+    """Launched but not yet collected: one device result per group chunk."""
+    n_queries: int
+    max_results: int
+    launched: list          # [(key, chunk_items, result on the card)]
+
+
+def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
+                  max_results: int = 1 << 16,
+                  max_group_size: int = MAX_GROUP_SIZE,
+                  stats: dict | None = None) -> PendingBatch:
+    """Launch one device program per (possibly fused) group chunk and return
+    without waiting for the card."""
+    launched = []
+    n_dispatches = 0
+    c0 = _compile_count() if stats is not None else 0
+    for key, items in groups.items():
+        step = _chunk_size(key, items, max_group_size)
+        for lo in range(0, len(items), step):
+            chunk = items[lo: lo + step]
+            launch = (_launch_bitmap_group if key.kind == "bitmap"
+                      else _launch_svs_group)
+            launched.append((key, chunk, launch(key, chunk, stats)))
+            n_dispatches += 1
+    accumulate_launch_stats(stats, groups, n_dispatches)
+    if stats is not None:
+        stats["n_compiles"] = (stats.get("n_compiles", 0)
+                               + _compile_count() - c0)
+    return PendingBatch(n_queries=n_queries, max_results=max_results,
+                        launched=launched)
+
+
+def accumulate_launch_stats(stats: dict | None, groups, n_dispatches: int):
+    """Accumulate the per-launch counters; ``n_programs`` is an alias of
+    ``n_dispatches``, as in the reference."""
+    if stats is None:
+        return
+    for k, v in (("n_groups", len(groups)), ("n_dispatches", n_dispatches),
+                 ("n_programs", n_dispatches),
+                 ("n_items", sum(len(v) for v in groups.values()))):
+        stats[k] = stats.get(k, 0) + v
+
+
+def collect_batch(pending: PendingBatch) -> list[QueryResult]:
+    """Copy each chunk's result to the host (one copy per chunk, which waits
+    for the card) and re-assemble per-query results in part order —
+    byte-identical to ``engine.query``."""
+    per_query: list[list[tuple[int, np.ndarray]]] = \
+        [[] for _ in range(pending.n_queries)]
+    counts = [0] * pending.n_queries
+    for key, chunk, res in pending.launched:
+        host = res.cpu().numpy()
+        for b, it in enumerate(chunk):
+            cnt = int(host[b, -1])
+            counts[it.qi] += cnt
+            if not cnt:
+                continue
+            row = host[b, :-1]
+            docs = (bm.extract_np(row) if key.kind == "bitmap"
+                    else row[row != SENT])
+            per_query[it.qi].append((it.pi, docs.astype(np.int64)
+                                     + it.doc_lo))
+    out = []
+    for qi in range(pending.n_queries):
+        chunks = [d for _, d in sorted(per_query[qi], key=lambda x: x[0])]
+        docs = (np.concatenate(chunks) if chunks
+                else np.zeros(0, np.int64))[: pending.max_results]
+        out.append(QueryResult(count=counts[qi], docs=docs))
+    return out
+
+
+def execute_batch(index: HybridIndex, queries: list[list[int]], *,
+                  max_results: int = 1 << 16,
+                  max_group_size: int = MAX_GROUP_SIZE, cache=None,
+                  skip: bool = True, stats: dict | None = None,
+                  fuse: bool = True, plan: FusionPlan | None = None
+                  ) -> list[QueryResult]:
+    """Answer a batch of conjunctive queries on the index's device; results
+    are element-for-element identical to ``engine.query`` per query.
+
+    cache: optional DecodeCache.  skip: False forces full decodes of every
+    fold list.  fuse: coarsen the scheduled groups into megagroup families
+    (False keeps one program per scheduled signature; results are identical
+    either way).  plan: a FusionPlan carrying sticky family ceilings across
+    calls.  stats: optional dict of scheduler counters (n_groups,
+    n_sched_groups/n_fused_groups, n_dispatches, n_compiles, n_items,
+    decoded_ints, skip_folds, signatures)."""
+    groups = schedule(index, queries, cache=cache, skip=skip, stats=stats)
+    if fuse:
+        groups = fuse_groups(groups, plan=plan, stats=stats)
+    pending = launch_groups(groups, n_queries=len(queries),
+                            max_results=max_results,
+                            max_group_size=max_group_size, stats=stats)
+    return collect_batch(pending)
+
+
+# --------------------------------------------------------------------------
+# warmup
+# --------------------------------------------------------------------------
+
+def synth_warmup_queries(index: HybridIndex, n: int, seed: int = 0,
+                         arities=(2, 3, 4, 5)) -> list[list[int]]:
+    """A warmup query sample from the index's own term stats: seeds from the
+    shortest tercile of list terms, other positions uniform."""
+    rng = np.random.default_rng(seed)
+    lens: dict[int, int] = {}
+    for part in index.parts:
+        for tid, tp in part.terms.items():
+            if tp.kind != "empty":
+                lens[tid] = lens.get(tid, 0) + tp.n
+    terms = sorted(lens.items(), key=lambda t: t[1])
+    if not terms:
+        return []
+    ids = [t for t, _ in terms]
+    short = ids[: max(len(ids) // 3, 1)]
+    queries = []
+    for i in range(n):
+        a = arities[i % len(arities)]
+        q = {int(rng.choice(short))}
+        while len(q) < min(a, len(ids)):
+            q.add(int(rng.choice(ids)))
+        queries.append(sorted(q))
+    return queries
+
+
+def warm_to_fixed_point(run_fn, max_passes: int = 4
+                        ) -> tuple[int, int, bool]:
+    """Repeat ``run_fn(stats)`` until a pass adds no new program signature.
+    Returns (n_signatures, passes, converged)."""
+    stats: dict = {}
+    seen = -1
+    passes = 0
+    converged = False
+    for _ in range(max_passes):
+        run_fn(stats)
+        passes += 1
+        n_sigs = len(stats.get("signatures", ()))
+        if n_sigs == seen:
+            converged = True
+            break
+        seen = n_sigs
+    return len(stats.get("signatures", ())), passes, converged
+
+
+def warmup(index: HybridIndex, queries: list[list[int]] | None = None, *,
+           plan: FusionPlan, batch_size: int = 32, cache=None,
+           skip: bool = True, max_group_size: int = MAX_GROUP_SIZE,
+           max_passes: int = 4, seed: int = 0) -> dict:
+    """Run the fused pipeline over ``queries`` (or a synthesized sample)
+    until no new program signature appears, so the plan's ceilings reach
+    their fixed point before serving.  Returns ``{"n_compiles",
+    "n_signatures", "passes", "converged", "time_s"}``; a steady state after
+    it reports ``n_compiles == 0``."""
+    t0 = time.perf_counter()
+    c0 = _compile_count()
+    if queries is None:
+        queries = synth_warmup_queries(index, 2 * batch_size, seed=seed)
+
+    def one_pass(stats):
+        for lo in range(0, len(queries), batch_size):
+            execute_batch(index, queries[lo: lo + batch_size], cache=cache,
+                          skip=skip, fuse=True, plan=plan,
+                          max_group_size=max_group_size, stats=stats)
+
+    n_signatures, passes, converged = warm_to_fixed_point(one_pass,
+                                                          max_passes)
+    return {"n_compiles": _compile_count() - c0,
+            "n_signatures": n_signatures,
+            "passes": passes,
+            "converged": converged,
+            "time_s": time.perf_counter() - t0}

@@ -68,6 +68,11 @@ class PackedSource:
         return int(self.payload.widths.shape[0])
 
     @property
+    def num_exceptions(self) -> int:
+        exc_pos = getattr(self.payload, "exc_pos", None)
+        return int(exc_pos.shape[0]) if exc_pos is not None else 0
+
+    @property
     def maxes_np(self) -> np.ndarray:
         """Host copy of the block-max skip index (uint32), read from the
         memoized host layout so the query path copies nothing off the card."""
@@ -83,6 +88,16 @@ class PackedSource:
 
     def self_pads(self) -> tuple[int, int, int]:
         return bitpack.self_pads(self.payload)
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without waiting for the
+    device: a CUDA upload is staged in pinned memory and copied with
+    ``non_blocking=True`` (a plain ``.to`` synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def pad_block_ids(blk: np.ndarray, c_pad: int, k_pad: int) -> np.ndarray:
@@ -140,7 +155,7 @@ def cached_layout_dev(src: PackedSource, pads: tuple,
         lay = entry["np"]
         device = src.payload.widths.device
         entry["dev"] = tuple(
-            torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(device)
+            to_device(np.ascontiguousarray(x).view(np.int32), device)
             for x in (lay.words, lay.widths, lay.offsets, lay.maxes,
                       lay.exc_pos, lay.exc_add))
     return entry["dev"]
@@ -177,8 +192,8 @@ def decode_padded(codec, tp, device) -> tuple[torch.Tensor, int]:
     if isinstance(tp.payload, bitpack.PackedList):
         vals = bitpack.decode_bucketed(tp.payload)[: tp.n]
     elif isinstance(tp.payload, varint_lib.VarintList):
-        vals = torch.from_numpy(
-            varint_lib.decode(tp.payload).astype(np.int32)).to(device)
+        vals = to_device(varint_lib.decode(tp.payload).astype(np.int32),
+                         device)
     else:
         c = codec_lib.codec_for(tp.payload) or codec
         vals = c.decode(tp.payload)[: tp.n]

@@ -11,7 +11,8 @@ Each C entry point takes its tensors and the CUDA stream as ``void*``
 ``cudaGetLastError()``; ``check`` raises when that is not 0.
 
 ``LAUNCHES`` counts kernel launches by kernel name.  A wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  ``BUILDS`` counts the
+libraries this process compiled with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {"unpack_blocks": 0, "gallop_tiles": 0,
                             "gallop_tiles_batched": 0,
-                            "packed_gallop_batched": 0}
+                            "packed_gallop_batched": 0,
+                            "decoded_fold_batched": 0,
+                            "packed_fold_batched": 0}
+BUILDS = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: name -> (library stem, argtypes)
@@ -48,6 +52,14 @@ SIGNATURES = {
     "repro_packed_gallop": ("packed_gallop",
                             [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
                              _I, _I, _I, _I, _P, _P, _P]),
+    # r, valid, B, M, folds, J, N, active, out, stream
+    "repro_decoded_fold": ("decoded_fold",
+                           [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P]),
+    # r, valid, B, M, words, Tp, widths, offsets, maxes, Kp, blk, C, exc_pos,
+    # exc_add, E, block_rows, mode, Jp, active, window, out, stream
+    "repro_packed_fold": ("packed_fold",
+                          [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I,
+                           _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -77,6 +89,7 @@ def lib_path(stem: str) -> Path:
 def build_all() -> dict[str, Path]:
     """Compile every missing library, one ``nvcc`` per source, all at once.
     Returns stem → library path."""
+    global BUILDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stems = sorted({stem for stem, _ in SIGNATURES.values()})
     paths = {s: lib_path(s) for s in stems}
@@ -96,6 +109,7 @@ def build_all() -> dict[str, Path]:
             errors.append(f"nvcc failed for {stem}.cu:\n{log.decode()}")
         else:
             os.replace(tmp, out)
+            BUILDS += 1
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

@@ -9,7 +9,9 @@ path on the card.
 
 The reference's ``GALLOP_VMEM_CAP`` (f must fit 4 MiB of VMEM, else jnp)
 has no Hopper counterpart: the kernels read their long operands from global
-memory, so no size of a CUDA tensor leaves the kernel.
+memory, so no size of a CUDA tensor leaves the kernel.  For the same reason
+the fold entry points have no ``_fold_scan`` fallback: every CUDA fold stack
+goes to K4 or K5 whole.
 
 ``launches()`` reads the per-kernel launch counts, ``reset_launches()`` sets
 them to 0.
@@ -23,6 +25,7 @@ from repro_torch.core import bitpack as core_bitpack
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitunpack as _bitunpack
 from repro_torch.kernels import intersect_gallop as _intersect_gallop
+from repro_torch.kernels import megakernel as _megakernel
 
 ROWS = _bitunpack.ROWS
 LANES = _bitunpack.LANES
@@ -90,3 +93,30 @@ def intersect_packed_batch(r, words, widths, offsets, maxes, blk_ids,
     return _intersect_gallop.packed_gallop_batched(
         r, words, widths, offsets, maxes, blk_ids, exc_pos, exc_add,
         mode=mode, block_rows=block_rows)
+
+
+# --------------------------------------------------------------------------
+# fused folds (K4, K5)
+# --------------------------------------------------------------------------
+
+def intersect_fold_batch(r, valid, folds, fold_active):
+    """K4: AND the gallop hits of the whole (J, B, N) decoded fold stack into
+    ``valid`` in one launch; J = 0 returns ``valid`` without one."""
+    if folds.shape[0] == 0:
+        return valid
+    return _megakernel.decoded_fold_batched(r, valid, folds, fold_active)
+
+
+def intersect_packed_fold(r, valid, pk, pk_active, mode: str,
+                          block_rows: int):
+    """K5: decode each (j, b) slot's candidate blocks and AND the gallop hits
+    of the whole (Jp, B, ...) packed stack into ``valid``.  ``pk`` is the
+    operand tuple in the reference's ``batch._compose_pk`` order (words,
+    widths, offsets, maxes, blk_ids, exc_pos, exc_add), as
+    ``index.batch._stack_packed`` returns it; Jp = 0 returns ``valid``."""
+    words, widths, offsets, maxes, blk_ids, exc_pos, exc_add = pk
+    if words.shape[0] == 0:
+        return valid
+    return _megakernel.packed_fold_batched(
+        r, valid, words, widths, offsets, maxes, blk_ids, exc_pos, exc_add,
+        pk_active, mode=mode, block_rows=block_rows)

@@ -1,18 +1,24 @@
-"""Serving launcher for the port: sequential conjunctive-query serving.
+"""Serving launcher for the port: conjunctive-query serving, sequential or
+batched.
 
-Port of the sequential paper-index path of ``src/repro/launch/serve.py``
-(``serve_index``, the non-batch branch).  It synthesizes the corpus, builds
-the HYB+M2 index (B=16, two parts) on the device, warms, and serves every
-query once more under the clock.
+Port of the paper-index path of ``src/repro/launch/serve.py``
+(``serve_index``, its sequential and single-device ``--batch`` branches).
+It synthesizes the corpus, builds the HYB+M2 index (B=16, two parts) on the
+device, warms, and serves every query once more under the clock.
+``--batch N`` (N > 1) serves through the batched engine
+(``index.batch.execute_batch``) in batches of N, fused into megagroup
+programs unless ``--no-fuse`` is given; ``--warmup`` warms the fused family
+ladder with ``batch.warmup`` first.  Hits equal the sequential serve's.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20 --cache \\
       --shared-vocab --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --batch 32 --warmup
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
-there is no card.  The flags of later slices (``--batch > 1``,
-``--pipeline``, ``--shards``, ``--mutate``, ``--qps``, ``--wal``,
-``--chaos``, ``--resident``) raise "not yet ported".
+there is no card.  The flags of later slices (``--pipeline``, ``--shards``,
+``--mutate``, ``--qps``, ``--wal``, ``--chaos``, ``--resident``) raise "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -31,9 +37,6 @@ _LATER_SLICES = ("pipeline", "shards", "mutate", "qps", "wal", "chaos",
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag of a later slice."""
-    if args.batch > 1:
-        raise NotImplementedError("--batch > 1 (the batched engine) is not "
-                                  "yet ported")
     for flag in _LATER_SLICES:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not yet ported")
@@ -57,6 +60,54 @@ def serve_queries(idx, queries, *, cache=None, skip: bool = True) -> dict:
             "hits": sum(r.count for r in results)}
 
 
+def serve_batched(idx, queries, *, batch: int, fuse: bool = True,
+                  warmup: bool = False, cache=None, skip: bool = True,
+                  plan=None) -> dict:
+    """Serve ``queries`` through ``batch.execute_batch`` in batches of
+    ``batch``, as the reference's ``--batch`` loop does: warm first
+    (``batch.warmup`` over the query stream with ``warmup`` and ``fuse``,
+    else passes until no new program signature appears), then one timed
+    pass that ends with every answer on the host.  ``plan`` is the serving
+    session's FusionPlan (a new one when None; unused unfused).  Returns
+    the results, the wall time, the counters of the timed pass and the
+    warmup's report."""
+    from repro_torch.index import batch as batch_lib
+    if not fuse:
+        plan = None
+    elif plan is None:
+        plan = batch_lib.FusionPlan()
+
+    def run_all(stats=None):
+        stats = {} if stats is None else stats
+        out = []
+        for lo in range(0, len(queries), batch):
+            out.extend(batch_lib.execute_batch(
+                idx, queries[lo: lo + batch], cache=cache, skip=skip,
+                fuse=fuse, plan=plan, stats=stats))
+        return out, stats
+
+    wu = None
+    if warmup and fuse:
+        wu = batch_lib.warmup(idx, queries, plan=plan, batch_size=batch,
+                              cache=cache, skip=skip)
+        print(f"[serve] warmup: {wu['n_compiles']} compiles over "
+              f"{wu['n_signatures']} signatures in {wu['passes']} "
+              f"passes ({wu['time_s']:.2f}s)")
+        converged = wu["converged"]
+    else:
+        n_sigs, passes, converged = batch_lib.warm_to_fixed_point(
+            lambda s: run_all(stats=s))
+    if not converged:
+        print("[serve] warning: the warm loop stopped at max_passes before "
+              "the signature ladder reached a fixed point — the timed run "
+              "may launch new programs")
+    t0 = time.perf_counter()
+    results, stats = run_all()
+    dt = time.perf_counter() - t0
+    return {"results": results, "seconds": dt, "stats": stats,
+            "hits": sum(r.count for r in results), "warmup": wu}
+
+
 def serve_index(args, *, n_docs: int = 1 << 16) -> dict:
     """Build the index for ``args`` and serve its queries; prints the
     reference's summary line and returns ``serve_queries``' report."""
@@ -75,14 +126,34 @@ def serve_index(args, *, n_docs: int = 1 << 16) -> dict:
           f"{st['bytes_per_int']:.2f} bytes/int "
           f"({st['bits_per_int']:.2f} bits/int) [{counts}]")
     cache = engine.DecodeCache() if args.cache else None
+    n = len(corpus.queries)
+    note = lambda: (f", cache hit rate {cache.hit_rate:.2f}"
+                    if cache is not None else "")
+    if args.batch > 1:
+        rep = serve_batched(idx, corpus.queries, batch=args.batch,
+                            fuse=args.fuse, warmup=args.warmup, cache=cache)
+        dt, stats = rep["seconds"], rep["stats"]
+        nd = stats.get("n_dispatches", 0)
+        n_batches = max((n + args.batch - 1) // args.batch, 1)
+        print(f"[serve] paper-index --batch {args.batch} ({device.type}"
+              f"{', fused' if args.fuse else ', unfused'}): "
+              f"{n} queries, {n / dt:.1f} q/s ({dt / n * 1e3:.2f} ms/query), "
+              f"{rep['hits']} hits, {nd} dispatches "
+              f"({nd / n_batches:.1f}/batch, "
+              f"{len(stats.get('signatures', ()))} programs, "
+              f"{stats.get('n_compiles', 0)} compiles), "
+              f"{stats.get('decoded_ints', 0) / n:.0f} decoded ints/query "
+              f"({stats.get('skip_folds', 0)} skip folds, "
+              f"{stats.get('resident_hits', 0)} resident hits), "
+              f"{st['bits_per_int']:.2f} bits/int{note()}")
+        return rep
     rep = serve_queries(idx, corpus.queries, cache=cache)
-    n, dt, stats = len(corpus.queries), rep["seconds"], rep["stats"]
-    note = f", cache hit rate {cache.hit_rate:.2f}" if cache is not None else ""
+    dt, stats = rep["seconds"], rep["stats"]
     print(f"[serve] paper-index: {n} queries, {n / dt:.1f} q/s "
           f"({dt / n * 1e3:.2f} ms/query), {rep['hits']} hits, "
           f"{stats.get('decoded_ints', 0) / n:.0f} decoded ints/query "
           f"({stats.get('skip_folds', 0)} skip folds), "
-          f"{st['bits_per_int']:.2f} bits/int{note}")
+          f"{st['bits_per_int']:.2f} bits/int{note()}")
     return rep
 
 
@@ -101,7 +172,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "fixes it at 5)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--batch", type=int, default=0,
-                    help="> 1 selects the batched engine: not yet ported")
+                    help="> 1 serves through the batched engine in batches "
+                         "of this size")
+    ap.add_argument("--fuse", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="with --batch: fuse each batch's groups into "
+                         "megagroup programs (--no-fuse: one program per "
+                         "shape signature)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="with --batch and --fuse: warm the fused family "
+                         "ladder with batch.warmup before the timed run")
     for flag in _LATER_SLICES:
         kind = {"pipeline": int, "shards": int, "mutate": int, "qps": float,
                 "wal": str, "chaos": str}.get(flag)

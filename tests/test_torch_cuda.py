@@ -160,3 +160,147 @@ def test_wrappers_reject_bad_operands(cuda):
         ops.intersect_gallop(r64, f)
     with pytest.raises(ValueError):
         ops.intersect_gallop(f, torch.zeros(128, dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
+# K4 / K5: the fold kernels
+# --------------------------------------------------------------------------
+
+def fold_case(seed: int, B: int, M: int, N: int, J: int):
+    """K4 operands: SENTINEL-tailed seed rows, sorted folds sharing some of
+    their values, some inactive slots, incoming holes."""
+    rng = np.random.default_rng(seed)
+    r = np.full((B, M), SENT, np.int32)
+    folds = np.full((J, B, N), SENT, np.int32)
+    for b in range(B):
+        rv = np.unique(rng.integers(0, 1 << 24, 3 * M // 4))
+        r[b, : rv.size] = rv
+        for j in range(J):
+            fv = np.union1d(rng.choice(rv, rv.size // 2),
+                            rng.integers(0, 1 << 24, N // 2))[: N - 1]
+            folds[j, b, : fv.size] = fv
+    act = rng.random((J, B)) < 0.75
+    valid = (r != SENT) & (rng.random((B, M)) < 0.9)
+    return r, valid, folds, act
+
+
+def packed_fold_case(seed: int, mode: str, codec: str, rows: int = 32,
+                     ceiling: bool = False):
+    """K5 operands for a (Jp=2, B=3) grid of real encodes (one inactive
+    slot), stacked as index/batch.py stacks them; ``ceiling`` raises the
+    k/t/c/e pads, Jp and Bp past the payloads like a fused family key."""
+    rng = np.random.default_rng(seed)
+    Jp, B = 2, 3
+    encs, rs = {}, []
+    for b in range(B):
+        f0 = np.cumsum(rng.integers(1, 60, 30000)).astype(np.int64)
+        rs.append(np.union1d(rng.choice(f0, 300), rng.integers(0, 10**6, 300)))
+        for j in range(Jp):
+            if (j, b) == (1, 2):
+                continue                            # inactive slot
+            f = f0 if j == 0 else np.union1d(
+                rng.choice(f0, 20000), rng.integers(0, 10**6, 5000))
+            encs[(j, b)] = (tf.encode(f, mode=mode, block_rows=rows)
+                            if codec == "fastpfor"
+                            else tb.encode(f, mode=mode, block_rows=rows))
+    pads = [max(tb.self_pads(e)[i] for e in encs.values()) for i in range(3)]
+    blks = {k: tb.candidate_block_ids(tb.layout_np(e, *pads).maxes[
+                : e.num_blocks], rs[k[1]]) for k, e in encs.items()}
+    c_pad = its.pow2_bucket(max(len(v) for v in blks.values()),
+                            floor=source.CAND_FLOOR)
+    if ceiling:
+        pads = [2 * pads[0], 2 * pads[1], 2 * max(pads[2], 4)]
+        c_pad, Jp, Bp = 2 * c_pad, 4, 4
+    else:
+        Bp = B
+    k_pad, t_pad, e_pad = pads
+    ops_ = {"words": np.zeros((Jp, Bp, t_pad, 128), np.uint32),
+            "widths": np.zeros((Jp, Bp, k_pad), np.int32),
+            "offsets": np.zeros((Jp, Bp, k_pad), np.int32),
+            "maxes": np.zeros((Jp, Bp, k_pad), np.uint32),
+            "blk": np.full((Jp, Bp, c_pad), k_pad, np.int32),
+            "exc_pos": np.full((Jp, Bp, e_pad), -1, np.int32),
+            "exc_add": np.zeros((Jp, Bp, e_pad), np.uint32)}
+    active = np.zeros((Jp, Bp), bool)
+    for (j, b), e in encs.items():
+        lay = tb.layout_np(e, *pads)
+        for k in ("words", "widths", "offsets", "maxes", "exc_pos", "exc_add"):
+            ops_[k][j, b] = getattr(lay, k)
+        ops_["blk"][j, b] = source.pad_block_ids(blks[(j, b)], c_pad, k_pad)
+        active[j, b] = True
+    R = np.full((Bp, 1024), SENT, np.int32)
+    for b, r in enumerate(rs):
+        R[b, : r.size] = r
+    valid = (R != SENT) & (R % 5 != 0)
+    pk = [ops_[k] for k in ("words", "widths", "offsets", "maxes", "blk",
+                            "exc_pos", "exc_add")]
+    return R, valid, pk, active, rows
+
+
+def _tb(a: np.ndarray, device="cpu") -> torch.Tensor:
+    return torch.from_numpy(a).to(device) if a.dtype == np.bool_ else _t(a, device)
+
+
+@pytest.mark.parametrize("B,M,N,J", [(3, 256, 1024, 3), (2, 1000, 4099, 2),
+                                     (4, 4096, 1 << 16, 4), (1, 300, 1, 1)])
+def test_decoded_fold_matches_plain(cuda, B, M, N, J):
+    r, valid, folds, act = fold_case(B + M + N, B, M, N, J)
+    cpu = [_tb(a) for a in (r, valid, folds, act)]
+    want = ops.intersect_fold_batch(*cpu)
+    before = ops.launches()["decoded_fold_batched"]
+    got = ops.intersect_fold_batch(*(a.to(cuda) for a in cpu))
+    torch.cuda.synchronize()
+    assert ops.launches()["decoded_fold_batched"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert want.any() or N == 1
+    empty = ops.intersect_fold_batch(cpu[0].to(cuda), cpu[1].to(cuda),
+                                     cpu[2][:0].to(cuda), cpu[3][:0].to(cuda))
+    assert ops.launches()["decoded_fold_batched"] == before + 1
+    assert torch.equal(empty.cpu(), cpu[1])
+
+
+@pytest.mark.parametrize("mode", ["d1", "d2", "d4", "dm", "dv"])
+@pytest.mark.parametrize("codec", ["bp", "fastpfor"])
+def test_packed_fold_matches_plain(cuda, mode, codec):
+    for rows, ceiling in ((32, False), (8, True)):
+        R, valid, pk, active, rows = packed_fold_case(
+            len(mode) + len(codec), mode, codec, rows, ceiling)
+        args = [_tb(R), _tb(valid), tuple(_tb(a) for a in pk), _tb(active)]
+        want = ops.intersect_packed_fold(*args, mode=mode, block_rows=rows)
+        before = ops.launches()["packed_fold_batched"]
+        got = ops.intersect_packed_fold(
+            args[0].to(cuda), args[1].to(cuda),
+            tuple(a.to(cuda) for a in args[2]), args[3].to(cuda), mode=mode,
+            block_rows=rows)
+        torch.cuda.synchronize()
+        assert ops.launches()["packed_fold_batched"] == before + 1
+        assert torch.equal(got.cpu(), want)
+        assert want.any() and not want[args[1]].all()
+        if codec == "fastpfor":
+            assert (pk[5] >= 0).any()
+
+
+def test_batched_engine_on_the_card_matches_the_cpu(cuda):
+    """execute_batch on a card-resident index gives the CPU index's answers
+    and goes through K4 and K5 (the corpora of tests/test_fusion.py)."""
+    from repro_torch.index import batch, builder, corpus as corpus_lib
+    n_docs = 1 << 16
+    skewed = {2: (100.0, [0.8 * (1 << 18) / n_docs,
+                          38000.0 * (1 << 18) / n_docs])}
+    mixed = {k: corpus_lib.TABLE2_CLUEWEB[k] for k in (2, 3, 4, 5)}
+    ops.reset_launches()
+    for table, codec, B, parts in ((skewed, "bp8-d1", 0, 1),
+                                   (mixed, "fastpfor-d1", 16, 2)):
+        corpus = corpus_lib.synthesize(n_docs=n_docs, n_queries=16, seed=7,
+                                       table=table)
+        cpu, card = (builder.build(corpus.postings, n_docs, codec_name=codec,
+                                   B=B, n_parts=parts, device=d)
+                     for d in ("cpu", cuda))
+        for fuse in (False, True):
+            got = batch.execute_batch(card, corpus.queries, fuse=fuse)
+            want = batch.execute_batch(cpu, corpus.queries, fuse=fuse)
+            assert [g.count for g in got] == [w.count for w in want]
+            assert all(np.array_equal(g.docs, w.docs)
+                       for g, w in zip(got, want))
+    assert ops.launches()["decoded_fold_batched"] > 0
+    assert ops.launches()["packed_fold_batched"] > 0
