@@ -5,7 +5,9 @@
 Phases, each fatal on failure, each timed:
   1. the card's name and power limit; build the hand kernels from
      src/repro_torch/kernels/csrc with nvcc (one process per source, all at
-     once); a few queries through the serve CLI, sequential and batched;
+     once); a few queries through the serve CLI, sequential and batched,
+     and with ``--codec streamvbyte`` and ``--codec auto`` (hits equal to
+     the default fastpfor serve's);
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32 × six modes, K2a/K2b over M 128…2**16
      and N 128…2**24 with all-SENTINEL and no-match rows, K3 over modes,
@@ -13,20 +15,27 @@ Phases, each fatal on failure, each timed:
      SENTINEL and padded rows, holes in the incoming mask, inactive slots
      and J = 0, K5 over modes d1–dv × bp/fastpfor (with and without
      exceptions), 32- and 8-row blocks, inactive, empty and single-block
-     slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0;
+     slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0, K6
+     over widths 0–32 × modes at K = 2**12 (and back through K1), K7 over
+     modes × block_rows 1/2/8 × byte lengths 1–4 with pow2 pad blocks,
+     clamped last-word reads, K = 1 … 2**15;
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
-     corpus with 64 queries (shared vocabulary), built as fastpfor-d1 and
-     as bp-d1 (two parts) on the card, at B=16 in three regimes — default,
+     corpus with 64 queries (shared vocabulary), built (two parts) on the
+     card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
      DecodeCache, skip=False — and without bitmaps (B=0) in the default
-     regime:
+     regime, and as streamvbyte-d1 and auto (the storage autotuner with
+     the reference's cost table) at B=16 in the default regime:
      3.  sequentially through ``serve.serve_queries`` / ``engine.query``;
      3b. batched through ``serve.serve_batched`` / ``batch.execute_batch``
          at batch 32, fused, with one FusionPlan per build warmed by
          ``batch.warmup``;
      every answer is checked against numpy brute force (and the batched
-     ones against the sequential ones), and the launch counts of K1–K5 are
-     checked; then one more default pass of each build and each path under
-     torch.profiler (device idle share);
+     ones against the sequential ones), and the launch counts of K1–K5 and
+     K7 are checked; then one more default pass of each B=16 build and
+     each path under torch.profiler (device idle share); then the pack
+     pass: the deltas of the corpus's longest lists packed on the card
+     through ``ops.pack_blocks`` (K6), held against the host encoder's
+     words and unpacked back through K1;
   4. each kernel timed with CUDA events at the largest shape the main path
      gave it, beside its plain version, a library call where one computes
      the same function, and its bound (bytes over 3.35 TB/s, or 32-bit
@@ -53,14 +62,23 @@ OPS_PER_S = 67e12              # H100 SXM 32-bit operations outside tensor cores
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
 N_QUERIES = 64
 BATCH = 32
-# Index configurations over the one corpus: (name, bitmap threshold B,
-# regimes).  B=16 is HYB+M2 as the serving default builds it; B=0 (no
+# Index configurations over the one corpus: (codec, name, bitmap threshold
+# B, regimes).  B=16 is HYB+M2 as the serving default builds it; B=0 (no
 # bitmaps) is the paper's other end of the B sweep (Tables 4/5, B ∈ {0, 8,
 # 16, 32}).  The batched scheduler skip-probes a list only when it is over
 # 32× the seed's whole list in a part (source.SKIP_MIN_RATIO); at B=16 every
 # list that long is a bitmap, so the batched skip path (K5) runs at B=0.
-CELLS = (("B16", 16, ("default", "cache", "noskip")),
-         ("B0", 0, ("default",)))
+# streamvbyte-d1 stores every list of 1024 postings or more as StreamVByte
+# (K7 decodes them); auto is the storage autotuner with the reference's
+# cost table.
+CELLS = tuple((codec, wname, B, regimes)
+              for codec in ("fastpfor-d1", "bp-d1")
+              for wname, B, regimes in (
+                  ("B16", 16, ("default", "cache", "noskip")),
+                  ("B0", 0, ("default",)))) + (
+    ("streamvbyte-d1", "B16", 16, ("default",)),
+    ("auto", "B16", 16, ("default",)))
+LONGEST_LISTS = 4              # lists of the K6 pack pass
 SENT = 2**31 - 1
 REPLACES = {
     "unpack_blocks": ("src/repro_torch/kernels/csrc/unpack_blocks.cu",
@@ -75,6 +93,10 @@ REPLACES = {
                              "src/repro/kernels/megakernel.py:88"),
     "packed_fold_batched": ("src/repro_torch/kernels/csrc/packed_fold.cu",
                             "src/repro/kernels/megakernel.py:162"),
+    "pack_blocks_padded": ("src/repro_torch/kernels/csrc/bitpack_pack.cu",
+                           "src/repro/kernels/bitpack_pack.py:58"),
+    "unpack_svb_blocks": ("src/repro_torch/kernels/csrc/svb_decode.cu",
+                          "src/repro/kernels/svb_decode.py:112"),
 }
 
 
@@ -394,6 +416,88 @@ def check_k5(dev, k3: dict) -> None:
         f"2**23-int window, and Jp = 0")
 
 
+def svb_operands(rng, K: int, rows: int, DW: int, dev) -> list:
+    """Random K7 operands: every 2-bit code (byte lengths 1–4), data offsets
+    at 0, inside and at the last bytes of the stream (clamped reads),
+    random seeds."""
+    ctrl = rng.integers(0, 1 << 32, (K, 8 * rows), dtype=np.uint64)
+    data = rng.integers(0, 1 << 32, DW, dtype=np.uint64)
+    doffs = rng.integers(0, 4 * DW, K)
+    doffs[::3] = 4 * DW - 1 - rng.integers(0, 8, doffs[::3].size)
+    doffs[0] = 0
+    seeds = rng.integers(0, 1 << 32, K, dtype=np.uint64)
+    return [_t(ctrl.astype(np.uint32), dev), _t(data.astype(np.uint32), dev),
+            _t(doffs.astype(np.int32), dev), _t(seeds.astype(np.uint32), dev)]
+
+
+def check_k7(dev) -> None:
+    """K7 vs plain over modes × block_rows {1, 2, 8}: random operands (byte
+    lengths 1–4, clamped last-word reads) at K = 1, 3001 and 2**15, and
+    encoded lists (gaps of 1–4 bytes) through their pow2-padded operands,
+    pad blocks included."""
+    from repro_torch.core import streamvbyte
+    from repro_torch.kernels import ops, svb_decode
+    rng = np.random.default_rng(7)
+    n_checks = 0
+    for rows in (1, 2, 8):
+        cases = [svb_operands(rng, K, rows, DW, dev)
+                 for K, DW in ((1, 1), (1, 33), (3001, 3001 * rows * 40),
+                               (1 << 15, (1 << 15) * rows * 50))]
+        for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
+            for n in (1, 120, 5000 * rows + 77):
+                gaps = (2.0 ** rng.uniform(0, 25 if n <= 120 else 18, n))
+                sl = streamvbyte.encode(np.cumsum(gaps.astype(np.int64)),
+                                        mode=mode, block_rows=rows).to(dev)
+                cases.append(svb_decode.bucketed_operands(sl))
+            for args in cases[-3:] + cases[:4]:
+                expect_equal(f"K7 {mode} rows={rows} K={args[0].shape[0]}",
+                             ops.unpack_svb_blocks(*args, mode, rows),
+                             svb_decode.decode_svb(*args, mode, rows))
+                n_checks += 1
+    log(f"K7 equal to plain on {n_checks} cases: modes none/d1/d2/d4/dm/dv x "
+        f"block_rows 1/2/8, byte lengths 1-4, pow2 pad blocks, clamped "
+        f"last-word reads, K = 1 ... 2**15")
+
+
+def check_k6(dev) -> None:
+    """K6 vs plain over widths 0–32 at K = 2**12, and ``ops.pack_blocks``
+    per mode on sorted values, its words back through K1."""
+    from repro_torch.core import deltas
+    from repro_torch.kernels import bitpack_pack, ops
+    rng = np.random.default_rng(6)
+    K = 1 << 12
+    widths = (np.arange(K) % 33).astype(np.int32)
+    hi = (np.ones(K, np.uint64) << widths.astype(np.uint64))
+    d = (rng.integers(0, 1 << 62, (K, 32, 128), dtype=np.uint64)
+         % hi[:, None, None]).astype(np.uint32)
+    d[:, 0, 0] = (hi - 1).astype(np.uint32)
+    td, tw = _t(d, dev), _t(widths, dev)
+    expect_equal("K6 widths 0-32, K=2**12",
+                 bitpack_pack.pack_blocks_padded(td, tw),
+                 bitpack_pack.pack_blocks_padded_plain(td, tw))
+    gaps = (2.0 ** rng.uniform(0, 8, K * 4096)).astype(np.int64)
+    gaps[rng.random(K * 4096) < 1e-4] = 1 << 20
+    vals = np.cumsum(gaps)
+    if vals[-1] >= 1 << 32:
+        raise AssertionError("K6 check values overflow 32 bits")
+    tv = _t(vals.astype(np.uint32), dev).reshape(K, 32, 128)
+    seeds = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                       tv[:-1, -1, -1]])
+    for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
+        dl = deltas.encode_deltas(tv, seeds, mode)
+        w = _t(np.array([int(m).bit_length() for m in
+                         dl.amax(dim=(1, 2)).cpu().numpy()], np.int32), dev)
+        got = ops.pack_blocks(tv, seeds, w, mode)
+        expect_equal(f"K6 ops.pack_blocks {mode}", got,
+                     bitpack_pack.pack_blocks_padded_plain(deltas.to_i32(dl),
+                                                           w))
+        expect_equal(f"K6 {mode} back through K1",
+                     ops.unpack_blocks(got, w, seeds, mode), tv)
+    log(f"K6 equal to plain: widths 0-32 at K=2**12, and ops.pack_blocks x "
+        f"6 modes at K=2**12 (widths "
+        f"{int(w.min())}-{int(w.max())} in dv), back through K1")
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path at full size
 # --------------------------------------------------------------------------
@@ -493,8 +597,8 @@ def serve_regime(idx, what, corpus, truth, regime, plan) -> tuple:
 
 
 def run_main_path(dev, corpus, truth) -> dict:
-    """Phases 3 and 3b for both codecs and every configuration of
-    ``CELLS``; ``truth`` holds the brute-force answers."""
+    """Phases 3 and 3b for every build of ``CELLS``; ``truth`` holds the
+    brute-force answers."""
     from repro_torch.index import batch as batch_lib, builder
     from repro_torch.kernels import ops
     totals = {k: 0 for k in ops.launches()}
@@ -502,45 +606,41 @@ def run_main_path(dev, corpus, truth) -> dict:
     seconds = {"build": 0.0, "sequential": 0.0, "batched": 0.0,
                "profile": 0.0}
     longest = None
-    for codec in ("fastpfor-d1", "bp-d1"):
-        for wname, B, regimes in CELLS:
+    for codec, wname, B, regimes in CELLS:
+        t0 = time.perf_counter()
+        idx = builder.build(corpus.postings, corpus.n_docs,
+                            codec_name=codec, B=B, n_parts=2, device=dev)
+        torch.cuda.synchronize()
+        st = idx.stats()
+        seconds["build"] += time.perf_counter() - t0
+        log(f"{codec} {wname}: built in {time.perf_counter() - t0:.2f} s, "
+            f"{st['bytes_per_int']:.4f} bytes/int, {st['postings']} "
+            f"postings, {idx.device_bytes()} index bytes on the card, "
+            f"lists {st['codec_counts']}")
+        plan = batch_lib.FusionPlan()    # one serving session per build
+        for regime in regimes:
+            counts, bcounts, t_seq, t_bat = serve_regime(
+                idx, f"{codec}/{wname}/{regime}", corpus, truth, regime, plan)
+            seconds["sequential"] += t_seq
+            seconds["batched"] += t_bat
+            for path, c in (("sequential", counts), ("batched", bcounts)):
+                per_regime[(codec, wname, regime, path)] = c
+                for k, v in c.items():
+                    totals[k] += v
+        if wname == "B16":
             t0 = time.perf_counter()
-            idx = builder.build(corpus.postings, corpus.n_docs,
-                                codec_name=codec, B=B, n_parts=2, device=dev)
-            torch.cuda.synchronize()
-            st = idx.stats()
-            seconds["build"] += time.perf_counter() - t0
-            log(f"{codec} {wname}: built in {time.perf_counter() - t0:.2f} s,"
-                f" {st['bytes_per_int']:.4f} bytes/int, {st['postings']} "
-                f"postings, {idx.device_bytes()} index bytes on the card, "
-                f"lists {st['codec_counts']}")
-            plan = batch_lib.FusionPlan()    # one serving session per build
-            for regime in regimes:
-                counts, bcounts, t_seq, t_bat = serve_regime(
-                    idx, f"{codec}/{wname}/{regime}", corpus, truth, regime,
-                    plan)
-                seconds["sequential"] += t_seq
-                seconds["batched"] += t_bat
-                for path, c in (("sequential", counts), ("batched", bcounts)):
-                    key = (codec, wname, regime, path)
-                    per_regime[key] = {k: per_regime.get(key, {}).get(k, 0)
-                                       + v for k, v in c.items()}
-                    for k, v in c.items():
-                        totals[k] += v
-            if wname == "B16":
-                t0 = time.perf_counter()
-                profile_pass(idx, corpus.queries, codec)
-                profile_pass(idx, corpus.queries, codec, plan=plan)
-                seconds["profile"] += time.perf_counter() - t0
-                if codec == "bp-d1":
-                    longest = max(
-                        (tp.payload for p in idx.parts
-                         for tp in p.terms.values()
-                         if tp.kind == "list" and hasattr(tp.payload, "maxes")),
-                        key=lambda pl: pl.n)
-            del idx
+            profile_pass(idx, corpus.queries, codec)
+            profile_pass(idx, corpus.queries, codec, plan=plan)
+            seconds["profile"] += time.perf_counter() - t0
+            if codec == "bp-d1":
+                longest = max(
+                    (tp.payload for p in idx.parts
+                     for tp in p.terms.values()
+                     if tp.kind == "list" and hasattr(tp.payload, "maxes")),
+                    key=lambda pl: pl.n)
+        del idx
     for codec in ("fastpfor-d1", "bp-d1"):
-        for wname, _, _ in CELLS:
+        for wname in ("B16", "B0"):
             if per_regime[(codec, wname, "default", "sequential")][
                     "packed_gallop_batched"] == 0:
                 raise AssertionError(f"K3 never ran in {codec}/{wname}/default")
@@ -558,9 +658,52 @@ def run_main_path(dev, corpus, truth) -> dict:
     if sum(v["unpack_blocks"] for k, v in per_regime.items()
            if k[0] == "bp-d1") == 0:
         raise AssertionError("K1 never ran in the bp-d1 build")
+    for path in ("sequential", "batched"):
+        if per_regime[("streamvbyte-d1", "B16", "default", path)][
+                "unpack_svb_blocks"] == 0:
+            raise AssertionError(f"K7 never ran in streamvbyte-d1/B16/"
+                                 f"default/{path}")
     log(f"launch counts over the main path (sequential + batched): {totals}; "
         f"seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"launches": totals, "longest": longest}
+
+
+def pack_pass(dev, corpus) -> int:
+    """The K6 path: the corpus's longest lists, blocked as the host encoder
+    blocks them (32 rows, the tail padded with the last value), packed on
+    the card through ``ops.pack_blocks`` with the encoder's widths and
+    seeds; the words must equal ``bitpack.encode``'s, padded per block, and
+    K1 must decode them back to the values.  Returns K6's launches, counted
+    over the packing only."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import ops
+    lists = sorted(corpus.postings, key=len)[-LONGEST_LISTS:]
+    launches = 0
+    for v in lists:
+        enc = bitpack.encode(v, mode="d1").to(dev)
+        K, rows = enc.num_blocks, enc.block_rows
+        vals = np.concatenate([v, np.full(K * rows * 128 - len(v), v[-1])])
+        vals = _t(vals.astype(np.uint32), dev).reshape(K, rows, 128)
+        seeds = bitpack.seeds_of(enc)
+        ops.reset_launches()
+        packed = ops.pack_blocks(vals, seeds, enc.widths, "d1")
+        torch.cuda.synchronize()
+        launches += ops.launches()["pack_blocks_padded"]
+        r = torch.arange(rows, device=dev)
+        idx = (enc.offsets[:, None] + r).clamp(max=enc.flat_words.shape[0] - 1)
+        want = torch.where((r < enc.widths[:, None])[..., None],
+                           enc.flat_words[idx.long()], 0)
+        expect_equal(f"K6 pack of a {len(v)}-posting list against the host "
+                     f"encoder", packed, want)
+        expect_equal(f"K6 words of a {len(v)}-posting list back through K1",
+                     ops.unpack_blocks(packed, enc.widths, seeds, "d1"), vals)
+    if launches == 0:
+        raise AssertionError("K6 never ran in the pack pass")
+    log(f"pack pass: the {LONGEST_LISTS} longest lists "
+        f"({', '.join(str(len(v)) for v in lists)} postings) packed by K6 "
+        f"equal to the host encoder's words and decode back through K1; "
+        f"K6 launches {launches}")
+    return launches
 
 
 def profile_pass(idx, queries, codec: str, plan=None) -> None:
@@ -794,6 +937,41 @@ def time_k5(args, kwargs) -> dict:
                      f"fold {lives}, mode {kwargs['mode']}"}
 
 
+def time_k6(args, kwargs) -> dict:
+    from repro_torch.kernels import bitpack_pack
+    deltas, widths = args
+    kern = lambda: bitpack_pack.pack_blocks_padded(deltas, widths)
+    plain = lambda: bitpack_pack.pack_blocks_padded_plain(deltas, widths)
+    K = deltas.shape[0]
+    # a (32, 128) tile in and out, the width; per value a shift, an OR and
+    # the spill test, shift and OR
+    b_ms, b_by = bound(K * (2 * 32 * 512 + 4), K * 4096 * 6)
+    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": f"K={K} blocks x 32 rows, widths "
+                     f"{int(widths.min())}-{int(widths.max())}"}
+
+
+def time_k7(args, kwargs) -> dict:
+    from repro_torch.kernels import svb_decode
+    ctrl, data, doffs, seeds, mode, rows = args
+    kern = lambda: svb_decode.unpack_svb_blocks(*args)
+    plain = lambda: svb_decode.decode_svb(*args)
+    K, CW = ctrl.shape
+    DW = data.shape[0]
+    n = K * rows * 128
+    # control words, data words, offsets and seeds in once, 4-byte values
+    # out; per value some 16 operations (code, length, offset scan, two
+    # loads, shift, mask, prefix sum)
+    b_ms, b_by = bound(K * CW * 4 + DW * 4 + K * 8 + n * 4, n * 16)
+    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": f"K={K} blocks x {rows} rows, DW={DW} data words, "
+                     f"mode {mode}"}
+
+
 def phase_done(k: int, t0: float) -> float:
     now = time.perf_counter()
     log(f"phase {k} done in {now - t0:.1f} s")
@@ -812,8 +990,8 @@ def main() -> int:
         f"{name}, compute capability {torch.cuda.get_device_capability(0)}")
     from repro_torch.core import bitpack
     from repro_torch.index import corpus as corpus_lib, engine
-    from repro_torch.kernels import (_build, bitunpack, intersect_gallop,
-                                     megakernel)
+    from repro_torch.kernels import (_build, bitpack_pack, bitunpack,
+                                     intersect_gallop, megakernel, svb_decode)
     from repro_torch.launch import serve
 
     t_phase = time.perf_counter()
@@ -829,6 +1007,12 @@ def main() -> int:
     if bat["hits"] != seq["hits"]:
         raise AssertionError("serve --batch gave other hits than the "
                              "sequential serve")
+    for codec in ("streamvbyte", "auto"):
+        alt = serve.main(["--queries", "8", "--cache", "--shared-vocab",
+                          "--codec", codec])
+        if alt["hits"] != seq["hits"]:
+            raise AssertionError(f"serve --codec {codec} gave other hits "
+                                 f"than the fastpfor serve")
     t_phase = phase_done(1, t_phase)
 
     t0 = time.perf_counter()
@@ -846,6 +1030,8 @@ def main() -> int:
     check_k4(dev)
     check_k5(dev, k3)
     del k3
+    check_k6(dev)
+    check_k7(dev)
     t_phase = phase_done(2, t_phase)
 
     recorders = [
@@ -859,11 +1045,17 @@ def main() -> int:
                  * max((f.shape[2] - 1).bit_length(), 1)),
         Recorder(megakernel, "packed_fold_batched",
                  lambda *a, **k: a[6].numel()),
+        Recorder(svb_decode, "unpack_svb_blocks",
+                 lambda *a, **k: a[0].numel()),
     ]
     torch.cuda.reset_peak_memory_stats()
     main_path = run_main_path(dev, corpus, truth)
     for rec in recorders:
         rec.restore()
+    recorders.append(Recorder(bitpack_pack, "pack_blocks_padded",
+                              lambda d, w: d.shape[0]))
+    main_path["launches"]["pack_blocks_padded"] += pack_pass(dev, corpus)
+    recorders[-1].restore()
     longest = max(corpus.postings, key=len)
     check_k1(dev, [
         ("longest list of the bp-d1 index", main_path["longest"]),
@@ -875,7 +1067,8 @@ def main() -> int:
     timers = {"unpack_blocks": time_k1, "gallop_tiles": time_k2,
               "packed_gallop_batched": time_k3,
               "decoded_fold_batched": time_k4,
-              "packed_fold_batched": time_k5}
+              "packed_fold_batched": time_k5,
+              "pack_blocks_padded": time_k6, "unpack_svb_blocks": time_k7}
     for rec in recorders:
         if rec.best is None:
             raise AssertionError(f"{rec.name} was never called on the main "

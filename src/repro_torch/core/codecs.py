@@ -1,14 +1,18 @@
 """Codec registry, by name and by payload type (paper §3's scheme zoo).
 
-Port of ``src/repro/core/codecs.py`` for the ``bp-<mode>``, ``bp8-<mode>``,
-``fastpfor-<mode>`` and ``varint`` names.  StreamVByte and composite raise
-"not yet ported".  ``bp-<mode>-ni`` decodes like ``bp-<mode>``: the two-pass
-variant exists for the reference's Fig. 1a benchmark, which is not ported.
+Port of ``src/repro/core/codecs.py``: ``bp-<mode>``, ``bp8-<mode>``,
+``fastpfor-<mode>``, ``varint``, ``streamvbyte-<mode>`` (alias ``svb``) and
+``composite-<mode>``.  ``bp-<mode>-ni`` decodes like ``bp-<mode>``: the
+two-pass variant exists for the reference's Fig. 1a benchmark, which is not
+ported.  ``codec_for`` / ``family_of`` resolve a codec from a payload
+object, so an index that mixes families per list (the storage autotuner's
+output) decodes and accounts by what each payload is; ``get_codec("auto")``
+returns the default family, as the reference's does.
 """
 
 from __future__ import annotations
 
-from repro_torch.core import bitpack, fastpfor, varint
+from repro_torch.core import bitpack, composite, fastpfor, streamvbyte, varint
 from repro_torch.core.deltas import MODES
 
 
@@ -62,15 +66,51 @@ class _VarintCodec:
         return varint.bits_per_int(vl)
 
 
+class _SVBCodec:
+    def __init__(self, mode: str, block_rows: int = streamvbyte.DEFAULT_ROWS):
+        self.mode, self.block_rows = mode, block_rows
+
+    def encode(self, values):
+        return streamvbyte.encode(values, mode=self.mode,
+                                  block_rows=self.block_rows)
+
+    def decode(self, sl):
+        return streamvbyte.decode(sl)
+
+    def decode_np(self, sl):
+        return streamvbyte.decode_np(sl)
+
+    def bits_per_int(self, sl):
+        return streamvbyte.bits_per_int(sl)
+
+
+class _CompositeCodec:
+    def __init__(self, mode: str, block_rows: int = composite.DEFAULT_ROWS):
+        self.mode, self.block_rows = mode, block_rows
+
+    def encode(self, values):
+        return composite.encode(values, mode=self.mode,
+                                block_rows=self.block_rows)
+
+    def decode(self, cl):
+        return composite.decode(cl)
+
+    def decode_np(self, cl):
+        return composite.decode_np(cl)
+
+    def bits_per_int(self, cl):
+        return composite.bits_per_int(cl)
+
+
 def get_codec(name: str):
     name = name.lower()
     if name == "varint":
         return _VarintCodec()
+    if name == "auto":      # per-list dispatch happens via codec_for
+        return _BPCodec("d1")
     parts = name.split("-")
     fam = parts[0]
     mode = parts[1] if len(parts) > 1 else "d1"
-    if fam in ("streamvbyte", "svb", "composite") or name == "auto":
-        raise NotImplementedError(f"codec {name!r} is not yet ported")
     if mode not in MODES:
         raise ValueError(f"unknown delta mode {mode!r} in codec {name!r}")
     if fam == "bp":
@@ -79,6 +119,10 @@ def get_codec(name: str):
         return _BPCodec(mode, block_rows=8)
     if fam == "fastpfor":
         return _PForCodec(mode)
+    if fam in ("streamvbyte", "svb"):
+        return _SVBCodec(mode)
+    if fam == "composite":
+        return _CompositeCodec(mode)
     raise ValueError(f"unknown codec {name!r}")
 
 
@@ -90,6 +134,10 @@ def codec_for(payload):
         return _BPCodec(payload.mode, block_rows=payload.block_rows)
     if isinstance(payload, varint.VarintList):
         return _VarintCodec()
+    if isinstance(payload, streamvbyte.SVBList):
+        return _SVBCodec(payload.mode, payload.block_rows)
+    if isinstance(payload, composite.CompositeList):
+        return _CompositeCodec(payload.mode, payload.block_rows)
     return None
 
 
@@ -101,6 +149,10 @@ def family_of(payload) -> str:
         return "bp8" if payload.block_rows == 8 else "bp"
     if isinstance(payload, varint.VarintList):
         return "varint"
+    if isinstance(payload, streamvbyte.SVBList):
+        return "streamvbyte"
+    if isinstance(payload, composite.CompositeList):
+        return "composite"
     return "unknown"
 
 
@@ -109,4 +161,6 @@ ALL_CODECS = (
     + [f"bp-{m}" for m in ("d1", "d2", "d4", "dm", "dv")]
     + [f"bp8-{m}" for m in ("d1", "d2", "d4", "dm", "dv")]
     + [f"fastpfor-{m}" for m in ("d1", "d2", "d4", "dm", "dv")]
+    + [f"streamvbyte-{m}" for m in ("d1", "d2", "d4", "dm", "dv")]
+    + ["composite-d1"]
 )

@@ -75,6 +75,40 @@ def encode_deltas_np(blocks: np.ndarray, seeds: np.ndarray, mode: str) -> np.nda
 
 
 # --------------------------------------------------------------------------
+# tensor encode (torch, int64 values taken mod 2**32)
+# --------------------------------------------------------------------------
+
+def encode_deltas(blocks: torch.Tensor, seeds: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """Port of the reference's ``encode_deltas_jnp``, the inverse of
+    ``prefix_sum`` on the payload's device.
+
+    blocks: (K, R, 128) sorted uint32 values (int32 bit patterns or int64);
+    seeds: (K,).  Returns (K, R, 128) int64 deltas in [0, 2**32): every
+    difference wraps mod 2**32 as the reference's uint32 ones do, and
+    nothing checks that the input was sorted."""
+    if mode not in MODES:
+        raise ValueError(f"unknown delta mode {mode!r}")
+    x = to_u32(blocks)
+    seeds = to_u32(seeds)
+    if mode == "none":
+        return x
+    if mode == "dv":
+        d = torch.cat([x[:, :1] - seeds[:, None, None],
+                       x[:, 1:] - x[:, :-1]], dim=1)
+    elif mode == "dm":
+        d = torch.cat([x[:, :1] - seeds[:, None, None],
+                       x[:, 1:] - x[:, :-1, 127:128]], dim=1)
+    else:
+        s = _STRIDE[mode]
+        K, R, L = x.shape
+        flat = x.reshape(K, R * L)
+        d = torch.cat([flat[:, :s] - seeds[:, None],
+                       flat[:, s:] - flat[:, :-s]], dim=1).reshape(K, R, L)
+    return d & U32_MASK
+
+
+# --------------------------------------------------------------------------
 # prefix sum (torch, int64 values taken mod 2**32)
 # --------------------------------------------------------------------------
 

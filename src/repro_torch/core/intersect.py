@@ -48,6 +48,16 @@ def pad_to_tensor(values: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without waiting for the
+    device: a CUDA upload is staged in pinned memory and copied with
+    ``non_blocking=True`` (a plain ``.to`` synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def pow2_bucket(n: int, floor: int = 128) -> int:
     size = floor
     while size < n:

@@ -269,8 +269,8 @@ def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device):
                     dst[j, b, : src.shape[0]] = src
             PBk[j, b, : blk.shape[0]] = blk
             active[j, b] = True
-    pk = (*stacked[:4], source.to_device(PBk, device), *stacked[4:])
-    return pk, source.to_device(active, device)
+    pk = (*stacked[:4], its.to_device(PBk, device), *stacked[4:])
+    return pk, its.to_device(active, device)
 
 
 def _assemble_svs(key: GroupKey, items: list[_Item]):
@@ -305,7 +305,7 @@ def _assemble_svs(key: GroupKey, items: list[_Item]):
                 W[jj, b, w.shape[0]:] = 0
     pkparts = (_stack_packed(key, items, Bp, device)
                if key.packed is not None else None)
-    return (R, F, source.to_device(active, device), pkparts, W, Bp, J, Jb)
+    return (R, F, its.to_device(active, device), pkparts, W, Bp, J, Jb)
 
 
 def _launch_svs_group(key: GroupKey, items: list[_Item],

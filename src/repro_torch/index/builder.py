@@ -1,18 +1,27 @@
 """HYB+M2 inverted index builder (paper §6.7, after Culpepper & Moffat [6]).
 
-Port of ``src/repro/index/builder.py`` (``build`` and its containers).
-Lists with average gap ≤ B (len ≥ n_docs/B) become bitmaps; the rest are
-compressed with the configured codec, lists shorter than
-``varint_tail_below`` with Varint.  The corpus is split into ``n_parts``
-doc-id ranges.  Encoding runs on the host (numpy); the payloads then move
-to ``device``, where the engine serves them.  ``codec_name="auto"`` (the
-reference's storage autotuner) is not yet ported.
+Port of ``src/repro/index/builder.py`` (``build``, its containers and the
+storage autotuner).  Lists with average gap ≤ B (len ≥ n_docs/B) become
+bitmaps; the rest are compressed with the configured codec, lists shorter
+than ``varint_tail_below`` with Varint.  The corpus is split into
+``n_parts`` doc-id ranges.  Encoding runs on the host (numpy); the payloads
+then move to ``device``, where the engine serves them.
+
+``codec_name="auto"`` turns on the build-time storage autotuner: per list it
+estimates every family's bytes in closed form from the list's deltas,
+combines them with a cost table (decode ns/int and dispatch ns/list per
+codec, gallop ns/probe) and picks the family and skip policy of least
+estimated serve-plus-storage cost.  The default table is the reference's
+(``configs.paper_index``), so an autotuned port build makes the reference's
+choices list by list.  Every choice is lossless: an autotuned index answers
+as a single-codec one does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 from typing import Any
 
 import numpy as np
@@ -27,7 +36,7 @@ from repro_torch.kernels import ops
 @dataclasses.dataclass
 class TermPosting:
     kind: str                  # 'list' | 'bitmap' | 'empty'
-    payload: Any               # PackedList/PatchedList/VarintList | words
+    payload: Any               # PackedList/PatchedList/VarintList/… | words
     n: int                     # postings in this part
     raw: np.ndarray | None = None   # kept for oracle checks in tests
     skip_ok: bool = True       # False forces the decoded path
@@ -82,35 +91,171 @@ class HybridIndex:
                 "codec_bytes": {k: int(v // 8) for k, v in fam_bits.items()}}
 
     def device_bytes(self) -> int:
-        """Bytes of the index's tensors (payloads and bitmaps)."""
-        total = 0
-        for part in self.parts:
-            for tp in part.terms.values():
-                if tp.kind == "bitmap":
-                    total += tp.payload.numel() * tp.payload.element_size()
-                elif tp.kind == "list" and not isinstance(tp.payload,
-                                                          varint.VarintList):
-                    total += sum(t.numel() * t.element_size()
-                                 for t in vars(tp.payload).values()
-                                 if isinstance(t, torch.Tensor))
-        return total
+        """Bytes of the index's tensors (payloads and bitmaps; a composite's
+        head).  Memoized decode operands (layouts, SVB pads) are not
+        counted."""
+        def nbytes(obj) -> int:
+            if isinstance(obj, torch.Tensor):
+                return obj.numel() * obj.element_size()
+            if dataclasses.is_dataclass(obj):
+                return sum(nbytes(getattr(obj, f.name))
+                           for f in dataclasses.fields(obj) if f.init)
+            return 0
+        return sum(nbytes(tp.payload) for part in self.parts
+                   for tp in part.terms.values()
+                   if tp.kind in ("bitmap", "list"))
+
+
+# --------------------------------------------------------------------------
+# build-time storage autotuner
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CostModel:
+    """Per-codec costs driving per-list codec + skip selection.
+
+    The modeled decode time of one list is the family's fixed per-decode
+    dispatch term plus ``n ·`` its per-int term (``_decode_cost``); a
+    family's score adds ``space_ns_per_byte · bytes``, bytes estimated in
+    closed form from the list's delta statistics.  ``gallop_ns_per_probe``
+    prices the packed skip path: a long bitpacked list keeps ``skip_ok``
+    only when probing its skip index at ``ref_probes`` candidates is
+    estimated cheaper than decoding it outright."""
+    decode_ns_per_int: dict[str, float]
+    dispatch_ns_per_list: dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    gallop_ns_per_probe: float = 90.0
+    space_ns_per_byte: float = 2.0
+    ref_probes: int = 4096
+
+    def decode_ns(self, family: str) -> float:
+        t = self.decode_ns_per_int
+        return float(t.get(f"{family}-d1", t.get(family, 1.0)))
+
+    def dispatch_ns(self, family: str) -> float:
+        t = self.dispatch_ns_per_list
+        return float(t.get(f"{family}-d1", t.get(family, 0.0)))
+
+    @classmethod
+    def resolve(cls, table=None) -> "CostModel":
+        """table: None → the default table (``configs.paper_index``), str →
+        path to a JSON table, dict → an inline table."""
+        if table is None:
+            from repro_torch.configs.paper_index import DEFAULT_COST_TABLE
+            table = DEFAULT_COST_TABLE
+        elif isinstance(table, str):
+            with open(table) as f:
+                table = json.load(f)
+        return cls(
+            decode_ns_per_int=dict(table.get("decode_ns_per_int", {})),
+            dispatch_ns_per_list=dict(table.get("dispatch_ns_per_list", {})),
+            gallop_ns_per_probe=float(table.get("gallop_ns_per_probe", 90.0)),
+            space_ns_per_byte=float(table.get("space_ns_per_byte", 2.0)))
+
+
+def list_stats(seg: np.ndarray, span: int) -> dict:
+    """Per-list statistics: length, density, and gap skew (max/mean delta
+    ratio)."""
+    n = int(seg.size)
+    d = np.diff(seg.astype(np.int64), prepend=np.int64(0))
+    mean_gap = float(d.mean()) if n else 0.0
+    return {"n": n,
+            "density": n / max(span, 1),
+            "skew": float(d.max()) / max(mean_gap, 1e-9) if n else 0.0}
+
+
+def _est_bytes(seg: np.ndarray) -> dict[str, float]:
+    """Closed-form storage estimate per codec family from the D1 deltas, no
+    trial encodes: bitpack pads to full blocks at the adaptive block size
+    and pays the per-block max width; streamvbyte pays whole bytes + 2-bit
+    control codes on 128-padded blocks; varint pays 7-bit groups; composite
+    pays bitpack on the full-block prefix and varint on the tail."""
+    n = int(seg.size)
+    d = np.diff(seg.astype(np.int64), prepend=np.int64(0)).astype(np.uint64)
+    bl = np.zeros(n, dtype=np.int64)
+    nz = d > 0
+    bl[nz] = np.floor(
+        np.log2(d[nz].astype(np.float64))).astype(np.int64) + 1
+
+    def block_bytes(rows: int, lens: np.ndarray) -> float:
+        per = rows * 128
+        k = max(-(-max(len(lens), 1) // per), 1)
+        padded = np.zeros(k * per, np.int64)
+        padded[: len(lens)] = lens
+        widths = padded.reshape(k, per).max(axis=1)
+        return float(widths.sum()) * per / 8 + k * 5     # +width/max meta
+
+    rows = 8 if n <= 8192 else 32
+    varint_b = float(np.maximum(-(-bl // 7), 1).sum())
+    svb_pad = (-n) % 128
+    svb_b = (float(np.maximum(-(-bl // 8), 1).sum()) + svb_pad
+             + (n + svb_pad) / 4 + max(-(-n // 128), 1) * 8)
+    bp_b = block_bytes(rows, bl)
+    per8 = 8 * 128
+    n_head = (n // per8) * per8
+    comp_b = ((block_bytes(8, bl[:n_head]) if n_head else 0.0)
+              + float(np.maximum(-(-bl[n_head:] // 7), 1).sum()))
+    return {"bp": bp_b, "streamvbyte": svb_b, "varint": varint_b,
+            "composite": comp_b}
+
+
+# Below this many ints a bitpacked list can't reach SKIP_MIN_BLOCKS blocks
+# at the adaptive block size, so packed serving is off the table and the
+# decode-cost comparison decides alone.
+_SKIP_MIN_INTS = 4 * 8 * 128
+
+
+def _decode_cost(fam: str, n: int, cm: CostModel) -> float:
+    """Modeled ns to decode one n-int list: the family's dispatch term plus
+    a per-int term.  Composite is derived from its parts (bp8 head + varint
+    tail), whose blend depends on n."""
+    if fam == "composite":
+        per = 8 * 128
+        n_head = (n // per) * per
+        cost = cm.dispatch_ns("varint") + (n - n_head) * cm.decode_ns("varint")
+        if n_head:
+            cost += cm.dispatch_ns("bp8") + n_head * cm.decode_ns("bp8")
+        return cost
+    if fam == "bp" and n <= 8192:
+        fam = "bp8"     # bitpack.encode adapts to 8-row blocks here
+    return cm.dispatch_ns(fam) + n * cm.decode_ns(fam)
+
+
+def autotune_choice(seg: np.ndarray, span: int, cm: CostModel,
+                    mode: str = "d1") -> tuple[str, bool]:
+    """Pick (codec name, skip_ok) for one posting list."""
+    n = int(seg.size)
+    if n >= _SKIP_MIN_INTS:
+        # long lists: bitpack, the only skip-capable layout, keeping the
+        # skip index only when probing beats decoding at reference load
+        skip_ok = (cm.gallop_ns_per_probe * cm.ref_probes
+                   < _decode_cost("bp", n, cm))
+        return f"bp-{mode}", skip_ok
+    est = _est_bytes(seg)
+    score = {fam: _decode_cost(fam, n, cm) + cm.space_ns_per_byte * b
+             for fam, b in est.items()}
+    fam = min(score, key=score.get)
+    name = "varint" if fam == "varint" else f"{fam}-{mode}"
+    return name, fam == "bp"
 
 
 def build(postings: list[np.ndarray], n_docs: int, codec_name: str = "bp-d1",
           B: int = 0, n_parts: int = 1, keep_raw: bool = False,
           varint_tail_below: int = 1024,
-          precompute_layouts: bool = True, device=None) -> HybridIndex:
+          precompute_layouts: bool = True, device=None,
+          cost_table=None) -> HybridIndex:
     """Build the index and place it on ``device`` (None = the CUDA card;
     raises where there is none — pass ``device="cpu"`` for the CPU).
 
     varint_tail_below: lists shorter than this are stored Varint (the
-    paper's tail-codec rule).  precompute_layouts: project every skip-capable
-    list onto its self-padded PackedLayout at build time, so serving never
-    pays the projection on the query path."""
+    paper's tail-codec rule).  ``codec_name="auto"`` replaces the fixed
+    codec and tail rule with the autotuner; ``cost_table`` feeds it a table
+    (path or dict, None = the default).  precompute_layouts: stage every
+    list's decode operands at build time (``source.precompute_layouts``),
+    so serving never pays for them on the query path."""
     device = ops.resolve_device(device)
-    if codec_name == "auto":
-        raise NotImplementedError("codec_name='auto' (the storage autotuner) "
-                                  "is not yet ported")
+    auto = codec_name == "auto"
+    cm = CostModel.resolve(cost_table) if auto else None
     codec = codec_lib.get_codec(codec_name)
     tail_codec = codec_lib.get_codec("varint")
     bounds = np.linspace(0, n_docs, n_parts + 1).astype(np.int64)
@@ -131,14 +276,20 @@ def build(postings: list[np.ndarray], n_docs: int, codec_name: str = "bp-d1",
                     "bitmap", torch.from_numpy(words).to(device),
                     int(seg.size), raw=seg if keep_raw else None)
             else:
-                c = tail_codec if (codec_name != "varint"
-                                   and seg.size < varint_tail_below) else codec
+                skip_ok = True
+                if auto:
+                    name, skip_ok = autotune_choice(seg, span, cm)
+                    c = codec_lib.get_codec(name)
+                else:
+                    c = tail_codec if (codec_name != "varint"
+                                       and seg.size < varint_tail_below) \
+                        else codec
                 payload = c.encode(seg)
                 if not isinstance(payload, varint.VarintList):
                     payload = payload.to(device)
                 terms[tid] = TermPosting(
                     "list", payload, int(seg.size),
-                    raw=seg if keep_raw else None)
+                    raw=seg if keep_raw else None, skip_ok=skip_ok)
         parts.append(IndexPart(lo, hi, terms, device=device))
     if precompute_layouts:
         from repro_torch.index import source

@@ -28,7 +28,10 @@ import torch
 from repro_torch.core import bitpack
 from repro_torch.core import codecs as codec_lib
 from repro_torch.core import intersect as its
+from repro_torch.core import streamvbyte
 from repro_torch.core import varint as varint_lib
+from repro_torch.core.intersect import to_device
+from repro_torch.kernels import svb_decode
 
 # Ratio above which a skip-capable list is probed packed instead of decoded
 # (the same constant the decoded-path dispatcher uses).
@@ -88,16 +91,6 @@ class PackedSource:
 
     def self_pads(self) -> tuple[int, int, int]:
         return bitpack.self_pads(self.payload)
-
-
-def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A host array as a tensor on ``device``, without waiting for the
-    device: a CUDA upload is staged in pinned memory and copied with
-    ``non_blocking=True`` (a plain ``.to`` synchronises the stream)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def pad_block_ids(blk: np.ndarray, c_pad: int, k_pad: int) -> np.ndarray:
@@ -162,12 +155,15 @@ def cached_layout_dev(src: PackedSource, pads: tuple,
 
 
 def precompute_layouts(parts, stats: dict | None = None) -> int:
-    """Build-time projection of every skip-capable list payload onto its
-    self-padded PackedLayout.  Returns the number of layouts staged."""
+    """Build-time staging: project every skip-capable list payload onto its
+    self-padded PackedLayout, and pad every StreamVByte payload's K7
+    operands on its device.  Returns the number of layouts staged."""
     n = 0
     for part in parts:
         for tid, tp in part.terms.items():
-            if (tp.kind == "list" and bitpack.skip_capable(tp.payload)
+            if isinstance(tp.payload, streamvbyte.SVBList):
+                svb_decode.bucketed_operands(tp.payload)
+            elif (tp.kind == "list" and bitpack.skip_capable(tp.payload)
                     and getattr(tp, "skip_ok", True)
                     and int(tp.payload.widths.shape[0]) >= SKIP_MIN_BLOCKS):
                 src = PackedSource(tp.payload, tp.n, key=(part.uid, tid))
@@ -187,8 +183,9 @@ def decoded_ints_of(payload) -> int:
 
 def decode_padded(codec, tp, device) -> tuple[torch.Tensor, int]:
     """Decode one term posting to (pow2-padded int32 vals on ``device``,
-    count).  Packed payloads decode where they lie; Varint decodes on the
-    host, as in the reference, and is uploaded."""
+    count).  Packed and StreamVByte payloads decode where they lie (K1, K7);
+    Varint decodes on the host, as in the reference, and is uploaded; a
+    composite decodes its head where it lies and uploads its tail."""
     if isinstance(tp.payload, bitpack.PackedList):
         vals = bitpack.decode_bucketed(tp.payload)[: tp.n]
     elif isinstance(tp.payload, varint_lib.VarintList):

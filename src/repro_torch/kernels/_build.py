@@ -36,7 +36,9 @@ LAUNCHES: dict[str, int] = {"unpack_blocks": 0, "gallop_tiles": 0,
                             "gallop_tiles_batched": 0,
                             "packed_gallop_batched": 0,
                             "decoded_fold_batched": 0,
-                            "packed_fold_batched": 0}
+                            "packed_fold_batched": 0,
+                            "pack_blocks_padded": 0,
+                            "unpack_svb_blocks": 0}
 BUILDS = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -60,6 +62,11 @@ SIGNATURES = {
     "repro_packed_fold": ("packed_fold",
                           [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I,
                            _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    # deltas, widths, K, out, stream
+    "repro_pack_blocks": ("bitpack_pack", [_P, _P, _I, _P, _P]),
+    # ctrl, CW, data, DW, doffs, seeds, K, block_rows, mode, out, stream
+    "repro_svb_decode": ("svb_decode",
+                         [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

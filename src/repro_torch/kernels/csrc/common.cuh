@@ -1,7 +1,8 @@
-// Shared device code of the decode kernels: the width-generic lane unpack
-// and `decode_block`, the per-block integrated unpack + prefix sum (paper
-// Algorithm 1) that K1 (unpack_blocks.cu) and K3's decode launch
-// (packed_gallop.cu) both run.
+// Shared device code of the decode kernels: the width-generic lane unpack,
+// `prefix_row`, one row of the mode's prefix sum (K7, svb_decode.cu, runs it
+// for its byte offsets and its values), and `decode_block`, the per-block
+// integrated unpack + prefix sum (paper Algorithm 1) that K1
+// (unpack_blocks.cu) and K3's decode launch (packed_gallop.cu) both run.
 //
 // Replaces the per-block body of src/repro/kernels/bitunpack.py
 // (`make_unpack_kernel`, and `decode_candidates` via core.bitpack's
@@ -62,6 +63,54 @@ __device__ __forceinline__ uint32_t unpack_lane(const uint32_t* __restrict__ wor
   return v & mask;
 }
 
+// One row's step of the mode's prefix sum: `t` is this thread's delta of
+// the row (lane threadIdx.x).  Returns the value and advances `carry` past
+// the row (per thread for dv, uniform across the CTA for the others).  All
+// 128 threads of the CTA must call it: dm, d1, d2 and d4 synchronise.
+template <int MODE>
+__device__ __forceinline__ uint32_t prefix_row(uint32_t t, uint32_t& carry,
+                                               ScanScratch& s) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  uint32_t v;
+  if constexpr (MODE == kNone) {
+    v = t;
+  } else if constexpr (MODE == kDV) {
+    carry += t;
+    v = carry;
+  } else if constexpr (MODE == kDM) {
+    if (tid == kLanes - 1) s.last = t;
+    __syncthreads();
+    v = t + carry;
+    carry += s.last;
+    __syncthreads();
+  } else {
+    constexpr int S = MODE == kD1 ? 1 : (MODE == kD2 ? 2 : 4);
+    uint32_t x = t;
+#pragma unroll
+    for (int off = S; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, off);
+      if (lane >= off) x += y;
+    }
+    // lanes 32-S .. 31 hold the warp's inclusive total of each phase
+    if (lane >= 32 - S) s.warp_sum[warp][lane - (32 - S)] = x;
+    __syncthreads();
+    const int p = lane & (S - 1);
+    uint32_t before = 0u, total = 0u;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t ws = s.warp_sum[w][p];
+      before += (w < warp) ? ws : 0u;
+      total += ws;
+    }
+    v = carry + before + x;
+    carry += total;
+    __syncthreads();
+  }
+  return v;
+}
+
 // Decode one block of `rows` x 128 values into out[r * 128 + lane].
 // `patch` (rows x 128 deltas to add before the prefix sum, FastPFOR
 // exceptions) may be null.  All 128 threads of the CTA must call it.
@@ -73,48 +122,11 @@ __device__ __forceinline__ void decode_block(const uint32_t* __restrict__ words,
                                              uint32_t* __restrict__ out,
                                              ScanScratch& s) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   uint32_t carry = seed;
   for (int r = 0; r < rows; ++r) {
     uint32_t t = unpack_lane(words, T, offset, b, r, tid);
     if (patch != nullptr) t += patch[r * kLanes + tid];
-    uint32_t v;
-    if constexpr (MODE == kNone) {
-      v = t;
-    } else if constexpr (MODE == kDV) {
-      carry += t;
-      v = carry;
-    } else if constexpr (MODE == kDM) {
-      if (tid == kLanes - 1) s.last = t;
-      __syncthreads();
-      v = t + carry;
-      carry += s.last;
-      __syncthreads();
-    } else {
-      constexpr int S = MODE == kD1 ? 1 : (MODE == kD2 ? 2 : 4);
-      uint32_t x = t;
-#pragma unroll
-      for (int off = S; off < 32; off <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, off);
-        if (lane >= off) x += y;
-      }
-      // lanes 32-S .. 31 hold the warp's inclusive total of each phase
-      if (lane >= 32 - S) s.warp_sum[warp][lane - (32 - S)] = x;
-      __syncthreads();
-      const int p = lane & (S - 1);
-      uint32_t before = 0u, total = 0u;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const uint32_t ws = s.warp_sum[w][p];
-        before += (w < warp) ? ws : 0u;
-        total += ws;
-      }
-      v = carry + before + x;
-      carry += total;
-      __syncthreads();
-    }
-    out[r * kLanes + tid] = v;
+    out[r * kLanes + tid] = prefix_row<MODE>(t, carry, s);
   }
 }
 

@@ -22,10 +22,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitpack as core_bitpack
+from repro_torch.core import deltas as core_deltas
 from repro_torch.kernels import _build
+from repro_torch.kernels import bitpack_pack as _bitpack_pack
 from repro_torch.kernels import bitunpack as _bitunpack
 from repro_torch.kernels import intersect_gallop as _intersect_gallop
 from repro_torch.kernels import megakernel as _megakernel
+from repro_torch.kernels import svb_decode as _svb_decode
 
 ROWS = _bitunpack.ROWS
 LANES = _bitunpack.LANES
@@ -70,6 +73,27 @@ def decode_packed(plist: core_bitpack.PackedList) -> torch.Tensor:
     """K1 decode of a PackedList in place (flat words + row offsets) → flat
     padded values (padded_n,) as int32 bit patterns."""
     return core_bitpack.decode(plist)
+
+
+def unpack_svb_blocks(ctrl, data, doffs, seeds, mode: str = "d1",
+                      block_rows: int = 1):
+    """K7: Stream VByte decode of (K, 8·block_rows) control words over the
+    (DW,) data words → (K, block_rows, 128) int32 bit patterns."""
+    return _svb_decode.unpack_svb_blocks(ctrl, data, doffs, seeds, mode,
+                                         block_rows)
+
+
+# --------------------------------------------------------------------------
+# encode
+# --------------------------------------------------------------------------
+
+def pack_blocks(values, seeds, widths, mode: str = "d1"):
+    """values: (K, 32, 128) sorted uint32 values (int32 bit patterns), seeds
+    and widths (K,) → (K, 32, 128) block-padded packed words (int32 bit
+    patterns): the deltas in torch ops, then K6, as the reference computes
+    them in jnp before its Pallas kernel."""
+    d = core_deltas.encode_deltas(values, seeds, mode)
+    return _bitpack_pack.pack_blocks_padded(core_deltas.to_i32(d), widths)
 
 
 # --------------------------------------------------------------------------

@@ -14,6 +14,7 @@ ladder with ``batch.warmup`` first.  Hits equal the sequential serve's.
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20 --cache \\
       --shared-vocab --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 32 --warmup
+  PYTHONPATH=src python -m repro_torch.launch.serve --codec auto --device cpu
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
 there is no card.  The flags of later slices (``--pipeline``, ``--shards``,
@@ -28,9 +29,11 @@ import time
 
 from repro_torch.kernels import ops
 
-# --codec flag value -> builder codec name (the ported families)
-_CODEC_NAMES = {"bitpack": "bp-d1", "fastpfor": "fastpfor-d1",
-                "varint": "varint"}
+# --codec flag value -> builder codec name ("auto" goes to the storage
+# autotuner; everything else pins one family index-wide)
+_CODEC_NAMES = {"auto": "auto", "bitpack": "bp-d1",
+                "streamvbyte": "streamvbyte-d1", "composite": "composite-d1",
+                "fastpfor": "fastpfor-d1", "varint": "varint"}
 _LATER_SLICES = ("pipeline", "shards", "mutate", "qps", "wal", "chaos",
                  "resident")
 
@@ -161,8 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=["paper-index"], default="paper-index")
     ap.add_argument("--queries", type=int, default=20)
-    ap.add_argument("--codec", choices=sorted(_CODEC_NAMES), default="fastpfor",
-                    help="posting-list codec family")
+    ap.add_argument("--codec", choices=list(_CODEC_NAMES), default="fastpfor",
+                    help="posting-list codec family (auto = the cost-model "
+                         "storage autotuner picks codec + skip policy per "
+                         "list)")
     ap.add_argument("--cache", action="store_true",
                     help="serve with a DecodeCache and report its hit rate")
     ap.add_argument("--shared-vocab", action="store_true",

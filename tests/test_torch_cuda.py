@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import bitpack as tb
+from repro_torch.core import deltas as td
 from repro_torch.core import fastpfor as tf
 from repro_torch.core import intersect as its
 from repro_torch.index import source
@@ -304,3 +305,106 @@ def test_batched_engine_on_the_card_matches_the_cpu(cuda):
                        for g, w in zip(got, want))
     assert ops.launches()["decoded_fold_batched"] > 0
     assert ops.launches()["packed_fold_batched"] > 0
+
+
+# --------------------------------------------------------------------------
+# K6 / K7: block bit packing and Stream VByte decode
+# --------------------------------------------------------------------------
+
+def svb_operands(seed: int, K: int, rows: int, DW: int):
+    """Random K7 operands: every 2-bit code (byte lengths 1–4), data offsets
+    at 0, inside and at the very end of the stream (clamped reads), random
+    seeds."""
+    rng = np.random.default_rng(seed)
+    ctrl = rng.integers(0, 1 << 32, (K, 8 * rows), dtype=np.uint64)
+    data = rng.integers(0, 1 << 32, DW, dtype=np.uint64)
+    doffs = rng.integers(0, 4 * DW, K)
+    doffs[:: 3] = 4 * DW - 1 - rng.integers(0, 8, doffs[:: 3].size)
+    doffs[0] = 0
+    seeds = rng.integers(0, 1 << 32, K, dtype=np.uint64)
+    return [_t(a.astype(np.uint32)) for a in (ctrl, data)] + [
+        _t(doffs.astype(np.int32)), _t(seeds.astype(np.uint32))]
+
+
+def svb_list(seed: int, n: int, mode: str, rows: int):
+    """An encoded SVBList of n sorted values with log-uniform gaps."""
+    from repro_torch.core import streamvbyte
+    rng = np.random.default_rng(seed)
+    gaps = (2.0 ** rng.uniform(0, 20, n)).astype(np.int64)
+    return streamvbyte.encode(np.cumsum(gaps), mode=mode, block_rows=rows)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rows", [1, 2, 8])
+def test_svb_decode_matches_plain(cuda, mode, rows):
+    """K7 against its plain version on whole outputs: random operands (every
+    byte length, clamped reads) at K = 1 and K = 3000, and encoded lists
+    through their pow2-padded operands (pad blocks included)."""
+    from repro_torch.core import streamvbyte
+    from repro_torch.kernels import svb_decode
+    cases = [svb_operands(K + rows, K, rows, DW)
+             for K, DW in ((1, 1), (1, 40), (3000, 3000 * rows * 50))]
+    for n in (1, 100, 20000):
+        sl = svb_list(n + rows, n, mode, rows)
+        cases.append(svb_decode.bucketed_operands(sl))
+        assert torch.equal(streamvbyte.decode(sl.to(cuda)).cpu(),
+                           streamvbyte.decode(sl))
+    for args in cases:
+        want = svb_decode.decode_svb(*args, mode, rows)
+        before = ops.launches()["unpack_svb_blocks"]
+        got = ops.unpack_svb_blocks(*(a.to(cuda) for a in args), mode, rows)
+        torch.cuda.synchronize()
+        assert ops.launches()["unpack_svb_blocks"] == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pack_blocks_matches_plain_and_round_trips(cuda, mode):
+    """K6 against its plain version over widths 0–32, and back through K1."""
+    from repro_torch.kernels import bitpack_pack
+    rng = np.random.default_rng(len(mode))
+    d = np.stack([rng.integers(0, 1 << b, (32, 128), dtype=np.uint64)
+                  for b in range(33)]).astype(np.uint32)
+    widths = np.arange(33, dtype=np.int32)
+    want = bitpack_pack.pack_blocks_padded_plain(_t(d), _t(widths))
+    before = ops.launches()["pack_blocks_padded"]
+    got = bitpack_pack.pack_blocks_padded(_t(d, cuda), _t(widths, cuda))
+    torch.cuda.synchronize()
+    assert ops.launches()["pack_blocks_padded"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    vals = np.sort(rng.integers(0, 1 << 32, 33 * 4096, dtype=np.uint64)
+                   ).astype(np.uint32).reshape(33, 32, 128)
+    seeds = np.concatenate([[0], vals[:-1, -1, -1]]).astype(np.uint32)
+    dl = td.encode_deltas_np(vals.astype(np.int64), seeds.astype(np.int64),
+                             mode)
+    w = np.array([int(b.max()).bit_length() for b in dl], np.int32)
+    packed = ops.pack_blocks(_t(vals, cuda), _t(seeds, cuda), _t(w, cuda),
+                             mode)
+    back = ops.unpack_blocks(packed, _t(w, cuda), _t(seeds, cuda), mode)
+    torch.cuda.synchronize()
+    assert np.array_equal(back.cpu().numpy().view(np.uint32), vals)
+
+
+def test_codec_breadth_on_the_card_matches_the_cpu(cuda):
+    """StreamVByte, composite and autotuned indexes on the card answer as on
+    the CPU, sequential and batched, and the SVB build goes through K7."""
+    from repro_torch.index import batch, builder, corpus as corpus_lib, engine
+    corpus = corpus_lib.synthesize(n_docs=1 << 16, n_queries=16, seed=9)
+    for codec in ("streamvbyte-d1", "composite-d1", "auto"):
+        cpu, card = (builder.build(corpus.postings, corpus.n_docs,
+                                   codec_name=codec, B=16, n_parts=2,
+                                   varint_tail_below=0, device=d)
+                     for d in ("cpu", cuda))
+        ops.reset_launches()
+        for path in ("sequential", "batched"):
+            if path == "sequential":
+                got = [engine.query(card, q) for q in corpus.queries]
+                want = [engine.query(cpu, q) for q in corpus.queries]
+            else:
+                got = batch.execute_batch(card, corpus.queries)
+                want = batch.execute_batch(cpu, corpus.queries)
+            assert [g.count for g in got] == [w.count for w in want]
+            assert all(np.array_equal(g.docs, w.docs)
+                       for g, w in zip(got, want))
+        if codec == "streamvbyte-d1":
+            assert ops.launches()["unpack_svb_blocks"] > 0

@@ -152,6 +152,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         t_builder.build([np.arange(10)], 100)
 
 
+@pytest.mark.parametrize("codec", ["streamvbyte", "composite", "auto"])
+def test_serve_codec_breadth_hits_equal_fastpfor(codec, capsys):
+    """``serve --codec streamvbyte|composite|auto`` on the CPU answers as the
+    default fastpfor serve, sequential and batched, and prints the
+    per-family storage line."""
+    base = ["--queries", "6", "--device", "cpu", "--shared-vocab"]
+    want = t_serve.main(base)["hits"]
+    assert t_serve.main(base + ["--codec", codec])["hits"] == want
+    assert t_serve.main(base + ["--codec", codec, "--batch", "4",
+                                "--warmup"])["hits"] == want
+    out = capsys.readouterr().out
+    assert f"index codec {codec} on cpu" in out and "bytes/int" in out
+
+
 def test_serve_runs_on_cpu_and_refuses_later_slices(capsys):
     rep = t_serve.main(["--queries", "4", "--device", "cpu", "--cache",
                         "--shared-vocab"])

@@ -1,5 +1,5 @@
-"""The port's kernels (K1 unpack, K2 gallop, K3 packed gallop), by their
-plain versions on the CPU, against the reference Pallas kernels in interpret
+"""The port's kernels (K1 unpack, K2 gallop, K3 packed gallop, K6 block
+packing), by their plain versions on the CPU, against the reference Pallas kernels in interpret
 mode.  Inputs come from a numpy seed and go to both packages as numpy; every
 comparison is exact.  The hand kernels themselves are held against these
 plain versions on the card in tests/test_torch_cuda.py."""
@@ -13,10 +13,15 @@ from repro.core import bitpack as ref_bitpack
 from repro.core import deltas as ref_deltas
 from repro.core import fastpfor as ref_fastpfor
 from repro.core import intersect as ref_its
+from repro.kernels import bitpack_pack as ref_kp
 from repro.kernels import bitunpack as ref_kb
 from repro.kernels import intersect_gallop as ref_kg
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_oracles
 from repro_torch.index import source as t_source
+from repro_torch.core import deltas as t_deltas
 from repro_torch.kernels import _build
+from repro_torch.kernels import bitpack_pack as tkp
 from repro_torch.kernels import bitunpack as tkb
 from repro_torch.kernels import ops
 
@@ -197,6 +202,64 @@ def test_plain_packed_gallop_matches_reference_kernel(mode, codec):
     assert want.any() and not want.all()
     if codec == "fastpfor":
         assert (case["exc_pos"] >= 0).any()
+
+
+def _pack_case(seed: int):
+    """K6 operands over widths 0–32: block k's deltas < 2**k, the first one
+    at the width's maximum."""
+    rng = np.random.default_rng(seed)
+    d = np.stack([rng.integers(0, 1 << b, (32, 128), dtype=np.uint64)
+                  for b in range(33)]).astype(np.uint32)
+    d[1:, 0, 0] = ((1 << np.arange(1, 33, dtype=np.uint64)) - 1)
+    return d, np.arange(33, dtype=np.int32)
+
+
+def test_plain_pack_matches_reference_kernel():
+    """K6's plain version equals the Pallas ``pack_blocks_padded``
+    (interpret) and ``ref.pack_blocks_ref`` over widths 0–32, and unpacks
+    back to the deltas through K1's plain version."""
+    d, widths = _pack_case(seed=7)
+    want = np.asarray(ref_kp.pack_blocks_padded(jnp.asarray(d),
+                                                jnp.asarray(widths),
+                                                interpret=True))
+    assert np.array_equal(
+        want, np.asarray(ref_oracles.pack_blocks_ref(jnp.asarray(d),
+                                                     jnp.asarray(widths))))
+    got = tkp.pack_blocks_padded(_t(d), _t(widths))
+    assert np.array_equal(_u32(got), want)
+    assert np.array_equal(_u32(tkp.pack_blocks_padded_plain(_t(d),
+                                                            _t(widths))), want)
+    back = ops.unpack_blocks(got, _t(widths), torch.zeros(33, dtype=torch.int32),
+                             "none")
+    assert np.array_equal(_u32(back), d)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pack_blocks_matches_reference_ops(mode):
+    """``ops.pack_blocks`` (tensor deltas, then K6) equals the reference's
+    ``ops.pack_blocks`` (jnp deltas, then the Pallas kernel) with block k
+    packed at width max(its deltas' width, k), so widths run up to 32; its
+    deltas equal ``encode_deltas_jnp``'s, and K1 decodes its words back to
+    the values."""
+    rng = np.random.default_rng(len(mode))
+    K = 33
+    vals = np.cumsum(rng.integers(0, 4, K * 4096)).astype(np.uint32)
+    vals = vals.reshape(K, 32, 128)
+    vals[0] = 0                               # a constant block: width 0
+    seeds = np.concatenate([[0], vals[:-1, -1, -1]]).astype(np.uint32)
+    dl = ref_deltas.encode_deltas_jnp(jnp.asarray(vals), jnp.asarray(seeds),
+                                      mode)
+    assert np.array_equal(t_deltas.encode_deltas(_t(vals), _t(seeds), mode)
+                          .numpy().astype(np.uint32), np.asarray(dl))
+    widths = np.array([max(int(b.max()).bit_length(), k)
+                       for k, b in enumerate(np.asarray(dl))], np.int32)
+    want = np.asarray(ref_ops.pack_blocks(jnp.asarray(vals),
+                                          jnp.asarray(seeds),
+                                          jnp.asarray(widths), mode=mode))
+    got = ops.pack_blocks(_t(vals), _t(seeds), _t(widths), mode)
+    assert np.array_equal(_u32(got), want)
+    back = ops.unpack_blocks(got, _t(widths), _t(seeds), mode)
+    assert np.array_equal(_u32(back), vals)
 
 
 def test_cpu_tensors_take_plain_path_without_counting():
