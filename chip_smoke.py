@@ -7,7 +7,8 @@ Phases, each fatal on failure, each timed:
      src/repro_torch/kernels/csrc with nvcc (one process per source, all at
      once); a few queries through the serve CLI, sequential and batched,
      and with ``--codec streamvbyte`` and ``--codec auto`` (hits equal to
-     the default fastpfor serve's);
+     the default fastpfor serve's); ``serve --arch gemma-7b --tokens 4``
+     (the smoke-reduced LM);
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32 × six modes, K2a/K2b over M 128…2**16
      and N 128…2**24 with all-SENTINEL and no-match rows, K3 over modes,
@@ -18,7 +19,9 @@ Phases, each fatal on failure, each timed:
      slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0, K6
      over widths 0–32 × modes at K = 2**12 (and back through K1), K7 over
      modes × block_rows 1/2/8 × byte lengths 1–4 with pow2 pad blocks,
-     clamped last-word reads, K = 1 … 2**15;
+     clamped last-word reads, K = 1 … 2**15; K8 (flash attention) at the
+     shapes of tests/test_torch_cuda.py, float32 within 1e-4 and bf16
+     within 0.05;
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built (two parts) on the
      card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
@@ -39,13 +42,31 @@ Phases, each fatal on failure, each timed:
   4. each kernel timed with CUDA events at the largest shape the main path
      gave it, beside its plain version, a library call where one computes
      the same function, and its bound (bytes over 3.35 TB/s, or 32-bit
-     operations over 67 T/s, the larger).
+     operations over 67 T/s, the larger); then the index is freed;
+  5. the served LM at full width: gemma-7b as registered (28 layers,
+     d_model 3072, 16 heads of 256, d_ff 24576, vocab 256000; 8,537,677,824
+     float32 parameters from a seeded generator on the card, bf16 compute)
+     serves 4 requests of 1024 prompt tokens and 32 new tokens through
+     ``serve.steps.greedy_generate``: finite logits, the first decode step
+     against a prefill over the prompt and its token, tokens/s and peak
+     memory, a profile of one prefill and one decode step; the same
+     weights cut to 2 layers in float32 on the card and on the CPU (logits
+     within 1e-3, |a - b| <= 1e-3 (1 + |b|), tokens equal); K8 through
+     ``ops.flash_attention`` on layer 0's prefill operands (against
+     ``layers.attention_full``), on the last decode step's operands
+     (against ``layers.attention_decode``) and on a phi3-medium-14b-wide
+     GQA shape; then K8 timed at the prefill and decode shapes beside its
+     plain version, ``scaled_dot_product_attention`` (timed only) and its
+     bound (bytes over 3.35 TB/s, or FLOPs over 989 TFLOP/s for bf16
+     operands and 67 TFLOP/s for float32).
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +80,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # H100 SXM 32-bit operations outside tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores (data sheet)
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
 N_QUERIES = 64
 BATCH = 32
@@ -97,7 +119,41 @@ REPLACES = {
                            "src/repro/kernels/bitpack_pack.py:58"),
     "unpack_svb_blocks": ("src/repro_torch/kernels/csrc/svb_decode.cu",
                           "src/repro/kernels/svb_decode.py:112"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:104"),
 }
+# phase 5: the served LM (gemma-7b as registered) and its request shape
+LM_ARCH = "gemma-7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
+LM_PARAMS = 8_537_677_824
+# K8 at phi3-medium-14b's attention width: B, Sq, Sk, H, Hkv, D
+GQA_SHAPE = (4, 1024, 1024, 40, 10, 128)
+# the first decode step against a prefill over the prompt and its token, in
+# bf16: the two paths sum their products in other orders (a 1-row product
+# against a 1025-row one), so the residual stream, rounded to bf16 (2**-9
+# of a value at most) after each of 56 sublayers, drifts apart like a
+# random walk of about sqrt(56) * 2**-9 ≈ 0.015 per path; the logits' RMS
+# difference must stay within 0.05 of their RMS
+LM_DECODE_TOL = 0.05
+# K8 at phase 2's shapes (tests/test_torch_cuda.py's FLASH_CASES): B, Sq,
+# Sk, H, Hkv, D, causal, kv_len, bq, bk
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, 128, 128),
+    (1, 512, 512, 8, 8, 128, True, None, 256, 256),
+    (2, 256, 512, 4, 1, 64, False, 450, 128, 128),
+    (1, 128, 1024, 2, 2, 256, False, None, 128, 512),
+    (1, 256, 256, 4, 4, 64, True, 200, 64, 64),
+    (2, 256, 256, 2, 2, 256, True, None, 512, 512),
+    (4, 1, 1056, 16, 16, 256, False, 1055, 512, 1056),
+    (2, 1, 512, 4, 2, 128, False, 1, 512, 512),
+    (1, 64, 128, 2, 1, 64, False, 0, 64, 64),
+    (1, 128, 256, 4, 2, 64, True, None, 128, 256),
+    (2, 96, 160, 4, 2, 64, True, 150, 32, 32),
+    (2, 32, 32, 4, 2, 16, True, None, 512, 512),
+    (1, 80, 80, 2, 2, 80, True, None, 16, 16),
+    (1, 48, 48, 2, 1, 20, False, 40, 16, 16),
+    (1, 256, 256, 40, 10, 128, True, None, 128, 128),
+]
 
 
 def log(msg: str) -> None:
@@ -498,6 +554,54 @@ def check_k6(dev) -> None:
         f"{int(w.min())}-{int(w.max())} in dv), back through K1")
 
 
+def max_float_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def expect_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                 tol: float) -> float:
+    """max |got - want| over the elements, which must be at most ``tol``."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    err = max_float_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs difference {err} > {tol}")
+    return err
+
+
+def flash_inputs(seed: int, shape: tuple, dtype, dev) -> list:
+    """q (B, Sq, H, D), k and v (B, Sk, Hkv, D), standard normal from a
+    numpy seed."""
+    B, Sq, Sk, H, Hkv, D = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(dtype).to(dev)
+            for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+
+def check_k8(dev) -> None:
+    """K8 against its plain version on the card at FLASH_CASES, float32
+    within 1e-4 (sums in another order) and bf16 within 0.05 (the output's
+    rounding, the reference's bf16 tolerance)."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, case in enumerate(FLASH_CASES):
+        causal, kv_len, bq, bk = case[6:]
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.05)):
+            q, k, v = flash_inputs(80 + i, case[:6], dtype, dev)
+            kw = dict(causal=causal, kv_len=kv_len, bq=bq, bk=bk)
+            err = expect_close(f"K8 {case} {dtype}",
+                               ops.flash_attention(q, k, v, **kw),
+                               fa.flash_attention_plain(q, k, v, **kw), tol)
+            worst[dtype] = max(worst[dtype], err)
+    log(f"K8 within tolerance of plain on {len(FLASH_CASES)} cases x float32 "
+        f"and bf16 (GQA 1-4:1, causal and full, kv_len 0/1/ragged, Sq = 1, "
+        f"D 16-256, ragged tiles): max abs error {worst[torch.float32]} "
+        f"(float32, tolerance 1e-4), {worst[torch.bfloat16]} (bf16, 0.05)")
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path at full size
 # --------------------------------------------------------------------------
@@ -708,18 +812,11 @@ def pack_pass(dev, corpus) -> int:
 
 def profile_pass(idx, queries, codec: str, plan=None) -> None:
     """One more default-regime pass under torch.profiler — sequential, or
-    batched with ``plan`` — the device's busy time against the wall time of
-    the pass, the kernels and copies that take most of it, and the host ops
-    that launched most of it.  Busy time adds up only the device's own
-    events (kernels, copies, memsets): a host op's self device time is the
-    same kernels seen again from the op that launched them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    batched with ``plan`` (see ``profile_report``)."""
     from repro_torch.index import batch as batch_lib, engine
     what = f"{codec}/default" + ("/batched" if plan is not None else "")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         if plan is None:
             for q in queries:
                 engine.query(idx, q)
@@ -727,6 +824,21 @@ def profile_pass(idx, queries, codec: str, plan=None) -> None:
             for lo in range(0, len(queries), BATCH):
                 batch_lib.execute_batch(idx, queries[lo: lo + BATCH],
                                         plan=plan)
+    profile_report(what, run, f"{len(queries)} queries")
+
+
+def profile_report(what: str, run, items: str) -> None:
+    """``run()`` under torch.profiler: the device's busy time against the
+    wall time, the kernels and copies that take most of it, and the host
+    ops that launched most of it.  Busy time adds up only the device's own
+    events (kernels, copies, memsets): a host op's self device time is the
+    same kernels seen again from the op that launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -744,7 +856,7 @@ def profile_pass(idx, queries, codec: str, plan=None) -> None:
            for k in ("cudaStreamSynchronize", "cudaMemcpyAsync",
                      "cudaLaunchKernel")}
     log(f"{what} profile: wall {wall_us / 1e3:.3f} ms for "
-        f"{len(queries)} queries under the profiler, device busy "
+        f"{items} under the profiler, device busy "
         f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}; "
         f"host API calls {api}; "
         f"top device time: " + "; ".join(
@@ -776,8 +888,9 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         if a.numel() else 0
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -972,6 +1085,225 @@ def time_k7(args, kwargs) -> dict:
                      f"mode {mode}"}
 
 
+def flash_work(q, k, causal: bool, kv_len) -> tuple[int, int]:
+    """K8's bytes (q, k, v and the output once each) and FLOPs (4 B H D
+    per visible (query, key) pair: QK^T and PV, a multiply and an add
+    each) for this call's masks."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    rows = np.arange(Sq)
+    visible = np.minimum(rows + 1, Sk) if causal else np.full(Sq, Sk)
+    if kv_len is not None:
+        visible = np.minimum(visible, max(kv_len, 0))
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * B * H * D * int(visible.sum())
+
+
+def time_k8(q, k, v, *, causal: bool, kv_len, bk: int) -> dict:
+    """K8 beside its plain version, torch's scaled_dot_product_attention
+    (timed only; top-left causal as the reference's mask) and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+    kw = dict(causal=causal, kv_len=kv_len, bk=bk)
+    kern = lambda: fa.flash_attention(q, k, v, **kw)
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if kv_len is not None:
+        mask = (torch.arange(k.shape[1], device=q.device) < kv_len)[None, None,
+                                                                     None]
+    gqa = dict(enable_gqa=True) if q.shape[2] != k.shape[2] else {}
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, **gqa)
+    nbytes, flops = flash_work(q, k, causal, kv_len)
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else OPS_PER_S
+    b_ms, b_by = bound(nbytes, flops, peak)
+    return {"max_abs_err": max_float_err(kern(), plain()),
+            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library),
+            "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, "
+                     f"causal {causal}, kv_len {kv_len}, {flops} FLOPs, "
+                     f"{nbytes} bytes"}
+
+
+class StepTimer:
+    """Wraps ``serve.steps``' prefill and decode_step while a generation
+    runs: the synchronised host time of each, every step's logits, and the
+    last decode call's (token, pos, cache)."""
+
+    def __init__(self, steps):
+        self.steps = steps
+        self.inner = {"prefill": steps.prefill,
+                      "decode_step": steps.decode_step}
+        self.seconds = {"prefill": 0.0, "decode_step": 0.0}
+        self.logits, self.last = [], None
+        steps.prefill = lambda *a: self._run("prefill", *a)
+        steps.decode_step = lambda *a: self._run("decode_step", *a)
+
+    def _run(self, what, *args):
+        if what == "decode_step":
+            self.last = args[1:4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner[what](*args)
+        torch.cuda.synchronize()
+        self.seconds[what] += time.perf_counter() - t0
+        self.logits.append(out[0])
+        return out
+
+    def restore(self):
+        self.steps.prefill = self.inner["prefill"]
+        self.steps.decode_step = self.inner["decode_step"]
+
+
+def generate(steps, params, cfg, prompt, max_new: int) -> tuple:
+    """``steps.greedy_generate`` under a StepTimer → (tokens, timer)."""
+    timer = StepTimer(steps)
+    try:
+        out = steps.greedy_generate(params, cfg, prompt, max_new,
+                                    prompt.shape[1] + max_new)
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+    return out, timer
+
+
+def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def serve_full_width(dev) -> dict:
+    """Phase 5: gemma-7b as registered, served on the card; the 2-layer
+    float32 cut against the CPU; K8 on the model's operands.  Returns K8's
+    launches over the phase and the operands phase 4 times it on."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import layers as L, transformer as tfm
+    from repro_torch.serve import steps
+    cfg = get_config(LM_ARCH).config
+    if cfg.param_count() != LM_PARAMS:
+        raise AssertionError(f"{LM_ARCH} is not the registered full width")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    # param_count, as the reference's, leaves out the final norm's d_model
+    n = sum(p.numel() for p in params.parameters())
+    if n != LM_PARAMS + cfg.d_model:
+        raise AssertionError(f"{n} parameters, want {LM_PARAMS} + "
+                             f"{cfg.d_model}")
+    log(f"{LM_ARCH}: {LM_PARAMS} {cfg.param_dtype} parameters (and the "
+        f"final norm's {cfg.d_model}; {n * 4} bytes) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    t0 = time.perf_counter()
+    out, timer = generate(steps, params, cfg, prompt, LM_NEW)
+    wall = time.perf_counter() - t0
+    logits = torch.stack(timer.logits, 1)                  # (B, steps, V)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{LM_ARCH}: non-finite logits")
+    if tuple(out.shape) != (LM_BATCH, LM_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{LM_ARCH}: bad tokens {tuple(out.shape)}")
+    t_pre, t_dec = timer.seconds["prefill"], timer.seconds["decode_step"]
+    log(f"{LM_ARCH} served {LM_BATCH} requests x ({LM_PROMPT} prompt + "
+        f"{LM_NEW} new) tokens in {wall:.3f} s: prefill {t_pre:.4f} s "
+        f"({LM_BATCH * LM_PROMPT / t_pre:.1f} tok/s), {LM_NEW - 1} decode "
+        f"steps {t_dec:.4f} s ({LM_BATCH * (LM_NEW - 1) / t_dec:.1f} tok/s, "
+        f"{t_dec / (LM_NEW - 1) * 1e3:.2f} ms/step); peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; logits finite, |max| "
+        f"{float(logits.abs().max())}; tokens of request 0 "
+        f"{out[0, :8].tolist()}")
+
+    # the first decode step against a prefill over the prompt and its token
+    again, _ = tfm.prefill(params, torch.cat([prompt, out[:, :1]], 1), cfg)
+    dec0 = timer.logits[1]
+    err = rel_rms(dec0, again)
+    same = int((dec0.argmax(-1) == again.argmax(-1)).sum())
+    log(f"first decode step against prefill over prompt + token: RMS "
+        f"difference {err:.5f} of the logits' RMS (tolerance "
+        f"{LM_DECODE_TOL}), max abs {max_float_err(dec0, again)}, argmax "
+        f"equal in {same}/{LM_BATCH} rows")
+    if not err <= LM_DECODE_TOL:
+        raise AssertionError(f"decode step differs from prefill by {err}")
+    del again
+
+    # K8 on the operands of the model's own attention calls
+    x = tfm.embed_tokens(params, prompt, cfg)
+    cos, sin = tfm.rope_tables(torch.arange(LM_PROMPT, device=dev),
+                               LM_BATCH, cfg)
+    q, k, v = tfm.layer_qkv(params.layers[0], x, cos, sin, cfg)
+    e_pre = expect_close("K8 on layer 0's prefill operands vs attention_full",
+                         ops.flash_attention(q, k, v, causal=True),
+                         L.attention_full(q, k, v), 0.05)
+    cache, token, pos = timer.last
+    xd = tfm.embed_tokens(params, token[:, None], cfg)
+    cos, sin = tfm.rope_tables(torch.tensor([pos], device=dev), LM_BATCH, cfg)
+    qd = tfm.layer_qkv(params.layers[0], xd, cos, sin, cfg)[0]
+    kc, vc = cache["k"][0], cache["v"][0]
+    e_dec = expect_close(
+        "K8 on the last decode step's operands vs attention_decode",
+        ops.flash_attention(qd, kc, vc, causal=False, kv_len=pos + 1,
+                            bk=kc.shape[1]),
+        L.attention_decode(qd, kc, vc, pos + 1), 0.05)
+    gq, gk, gv = flash_inputs(85, GQA_SHAPE, torch.bfloat16, dev)
+    got = ops.flash_attention(gq, gk, gv, causal=True)
+    e_gqa = expect_close("K8 at phi3-medium-14b's GQA width vs attention_full",
+                         got, L.attention_full(gq, gk, gv), 0.05)
+    e_gqa_plain = expect_close(
+        "K8 at phi3-medium-14b's GQA width vs plain", got,
+        fa.flash_attention_plain(gq, gk, gv, causal=True), 0.05)
+    del gq, gk, gv, got
+    launches = ops.launches()["flash_attention"]
+    if launches == 0:
+        raise AssertionError("K8 never ran in phase 5")
+    log(f"K8 on the model's operands: prefill q {tuple(q.shape)} vs "
+        f"attention_full max abs {e_pre}; decode q {tuple(qd.shape)} over the "
+        f"{kc.shape[1]}-long cache, kv_len {pos + 1}, vs attention_decode "
+        f"{e_dec}; GQA 40:10 at D=128 vs attention_full {e_gqa}, vs plain "
+        f"{e_gqa_plain} (tolerance 0.05, bf16); K8 launches {launches}")
+    timed = {"prefill": (q, k, v, dict(causal=True, kv_len=None, bk=512)),
+             "decode": (qd, kc.clone(), vc.clone(),
+                        dict(causal=False, kv_len=pos + 1, bk=kc.shape[1]))}
+    # where a request's time goes: one more prefill, and the last decode
+    # step once more on its own cache
+    profile_report(f"{LM_ARCH} prefill", lambda: tfm.prefill(params, prompt,
+                                                             cfg),
+                   f"{LM_BATCH} x {LM_PROMPT} tokens")
+    profile_report(f"{LM_ARCH} decode step",
+                   lambda: tfm.decode_step(params, cache, token, pos, cfg),
+                   f"{LM_BATCH} tokens at position {pos}")
+    del cache, timer, logits, x, xd
+
+    # the same weights cut to 2 layers in float32, on the card and the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = tfm.LM(cfg2, device="meta")
+    small.embed, small.final_norm = params.embed, params.final_norm
+    small.layers = torch.nn.ModuleList(list(params.layers[:2]))
+    on_cpu = tfm.LM(cfg2, device="cpu")
+    on_cpu.load_state_dict(small.state_dict())
+    p64 = prompt[:, :64]
+    t0 = time.perf_counter()
+    got, t_card = generate(steps, small, cfg2, p64, 4)
+    want, t_cpu = generate(steps, on_cpu, cfg2, p64.cpu(), 4)
+    errs = []
+    for a, b in zip(t_card.logits, t_cpu.logits):
+        a = a.cpu()
+        errs.append(float(((a - b).abs() / (1 + b.abs())).max()))
+    if not (max(errs) <= 1e-3 and torch.equal(got.cpu(), want)):
+        raise AssertionError(f"2-layer float32 card vs CPU: per-step "
+                             f"|a - b| / (1 + |b|) {errs}, tokens "
+                             f"{got.tolist()} vs {want.tolist()}")
+    log(f"{LM_ARCH} cut to 2 layers, float32, 64-token prompt, 4 new tokens: "
+        f"card and CPU logits within 1e-3 (max |a - b| / (1 + |b|) per step "
+        f"{errs}), tokens equal {got[0].tolist()} ({time.perf_counter() - t0:.1f} s)")
+    del small, on_cpu, params
+    return {"launches": launches, "timed": timed}
+
+
 def phase_done(k: int, t0: float) -> float:
     now = time.perf_counter()
     log(f"phase {k} done in {now - t0:.1f} s")
@@ -984,6 +1316,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # float32 products in full float32 on the card (no TF32), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1013,6 +1348,10 @@ def main() -> int:
         if alt["hits"] != seq["hits"]:
             raise AssertionError(f"serve --codec {codec} gave other hits "
                                  f"than the fastpfor serve")
+    lm = serve.main(["--arch", LM_ARCH, "--tokens", "4"])
+    if tuple(lm["tokens"].shape) != (4, 4):
+        raise AssertionError(f"serve --arch {LM_ARCH} gave tokens of shape "
+                             f"{tuple(lm['tokens'].shape)}")
     t_phase = phase_done(1, t_phase)
 
     t0 = time.perf_counter()
@@ -1032,6 +1371,7 @@ def main() -> int:
     del k3
     check_k6(dev)
     check_k7(dev)
+    check_k8(dev)
     t_phase = phase_done(2, t_phase)
 
     recorders = [
@@ -1090,7 +1430,25 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": main_path["launches"][kname], **res})
-    phase_done(4, t_phase)
+    t_phase = phase_done(4, t_phase)
+
+    # free the index and its recorded operands before the LM
+    del recorders, rows, main_path, corpus, truth, longest
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_path = serve_full_width(dev)
+    k8 = {}
+    for what, (q, k, v, kw) in lm_path.pop("timed").items():
+        k8[what] = time_k8(q, k, v, **kw)
+        if not k8[what]["max_abs_err"] <= 0.05:
+            raise AssertionError(f"K8 differs from plain at the {what} shape")
+        log(f"flash_attention ({what}) at {k8[what].pop('shape')}: " + ", ".join(
+            f"{key} {val}" for key, val in k8[what].items()))
+    source, replaces = REPLACES["flash_attention"]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": source, "replaces": replaces,
+                    "launches": lm_path["launches"], **k8["prefill"]})
+    phase_done(5, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

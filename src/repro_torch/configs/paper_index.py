@@ -7,7 +7,24 @@ a measurement of any accelerator, and not of the card this port runs on.
 The port keeps them so that ``codec_name="auto"`` makes exactly the
 reference's choice for every list.  A table measured on the card would
 replace them through ``build(..., cost_table=...)``.
+
+It also registers the paper's own "architecture", ``paper-index``, as the
+reference's module does.
 """
+
+from repro_torch.configs.base import ArchSpec, register
+
+SPEC = register(ArchSpec(
+    arch_id="paper-index",
+    family="index",
+    config={"codec": "bp-d1", "B": 16, "n_docs": 1 << 22},
+    shapes={
+        "svs_batch": {"kind": "svs", "n_queries": 4096, "m": 4096,
+                      "n": 1 << 20},
+        "decode_bulk": {"kind": "decode_lists", "n_blocks": 8192},
+    },
+    source="Lemire, Boytsov, Kurz 2014 (this paper)",
+))
 
 DEFAULT_COST_TABLE = {
     "decode_ns_per_int": {

@@ -38,7 +38,8 @@ LAUNCHES: dict[str, int] = {"unpack_blocks": 0, "gallop_tiles": 0,
                             "decoded_fold_batched": 0,
                             "packed_fold_batched": 0,
                             "pack_blocks_padded": 0,
-                            "unpack_svb_blocks": 0}
+                            "unpack_svb_blocks": 0,
+                            "flash_attention": 0}
 BUILDS = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,6 +68,11 @@ SIGNATURES = {
     # ctrl, CW, data, DW, doffs, seeds, K, block_rows, mode, out, stream
     "repro_svb_decode": ("svb_decode",
                          [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P]),
+    # q, k, v, B, Sq, Sk, H, Hkv, D, causal, kv_len (-1: none), dtype, out,
+    # stream
+    "repro_flash_attention": ("flash_attention",
+                              [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P]),
 }
 
 _lock = threading.Lock()

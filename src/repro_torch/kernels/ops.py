@@ -26,6 +26,7 @@ from repro_torch.core import deltas as core_deltas
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitpack_pack as _bitpack_pack
 from repro_torch.kernels import bitunpack as _bitunpack
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import intersect_gallop as _intersect_gallop
 from repro_torch.kernels import megakernel as _megakernel
 from repro_torch.kernels import svb_decode as _svb_decode
@@ -94,6 +95,19 @@ def pack_blocks(values, seeds, widths, mode: str = "d1"):
     them in jnp before its Pallas kernel."""
     d = core_deltas.encode_deltas(values, seeds, mode)
     return _bitpack_pack.pack_blocks_padded(core_deltas.to_i32(d), widths)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, kv_len=None,
+                    bq: int = 512, bk: int = 512):
+    """K8: flash attention forward (GQA-aware), q (B, Sq, H, D), k/v
+    (B, Sk, Hkv, D) → (B, Sq, H, D) in q's dtype; see
+    kernels/flash_attention.py."""
+    return _flash_attention.flash_attention(q, k, v, causal=causal,
+                                            kv_len=kv_len, bq=bq, bk=bk)
 
 
 # --------------------------------------------------------------------------

@@ -408,3 +408,75 @@ def test_codec_breadth_on_the_card_matches_the_cpu(cuda):
                        for g, w in zip(got, want))
         if codec == "streamvbyte-d1":
             assert ops.launches()["unpack_svb_blocks"] > 0
+
+
+# --------------------------------------------------------------------------
+# K8: flash attention forward
+# --------------------------------------------------------------------------
+
+# B, Sq, Sk, H, Hkv, D, causal, kv_len, bq, bk: tests/test_flash_attention.py's
+# CASES, then D = 256 causal, decode (Sq = 1) with kv_len, kv_len = 1 and 0,
+# Sq != Sk causal, rows and keys that leave the kernel's 64-row and 64-key
+# tiles ragged, the reduced models' D = 16, D = 80 and D = 20 (no 16-byte
+# loads in bf16), and phi3-medium-14b's 4:1 GQA at D = 128
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, 128, 128),
+    (1, 512, 512, 8, 8, 128, True, None, 256, 256),
+    (2, 256, 512, 4, 1, 64, False, 450, 128, 128),
+    (1, 128, 1024, 2, 2, 256, False, None, 128, 512),
+    (1, 256, 256, 4, 4, 64, True, 200, 64, 64),
+    (2, 256, 256, 2, 2, 256, True, None, 512, 512),
+    (4, 1, 1056, 16, 16, 256, False, 1055, 512, 1056),
+    (2, 1, 512, 4, 2, 128, False, 1, 512, 512),
+    (1, 64, 128, 2, 1, 64, False, 0, 64, 64),
+    (1, 128, 256, 4, 2, 64, True, None, 128, 256),
+    (2, 96, 160, 4, 2, 64, True, 150, 32, 32),
+    (2, 32, 32, 4, 2, 16, True, None, 512, 512),
+    (1, 80, 80, 2, 2, 80, True, None, 16, 16),
+    (1, 48, 48, 2, 1, 20, False, 40, 16, 16),
+    (1, 256, 256, 40, 10, 128, True, None, 128, 128),
+]
+
+
+def flash_inputs(seed: int, case, dtype):
+    B, Sq, Sk, H, Hkv, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)
+            for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    """K8 against its plain version on the card: within 1e-4 in float32
+    (sums in another order), 0.05 in bf16 (the output's rounding, as the
+    reference's bf16 test)."""
+    from repro_torch.kernels import flash_attention as tfa
+    causal, kv_len, bq, bk = case[6:]
+    q, k, v = (t.to(cuda) for t in flash_inputs(14, case, dtype))
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                     bq=bq, bk=bk)
+    before = ops.launches()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len, bq=bq,
+                              bk=bk)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = (t.to(cuda) for t in flash_inputs(
+        15, (1, 64, 64, 2, 2, 64), torch.float32))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(AssertionError):
+        ops.flash_attention(q, k, v, bq=48)
+    wide = torch.zeros((1, 16, 1, 512), device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(wide, wide, wide)
+    assert tfa.MAX_HEAD_DIM == 256
