@@ -21,7 +21,11 @@ Phases, each fatal on failure, each timed:
      modes × block_rows 1/2/8 × byte lengths 1–4 with pow2 pad blocks,
      clamped last-word reads, K = 1 … 2**15; K8 (flash attention) at the
      shapes of tests/test_torch_cuda.py, float32 within 1e-4 and bf16
-     within 0.05;
+     within 0.05 and elementwise within ``flash_attention.bf16_allowance``,
+     each call on the route (tc, split or simt) that FLASH_CASES states,
+     by K8's route counter, and every route run; K8's kernels' registers
+     and spills, read by ``cuobjdump`` (fatal if a tc or split kernel
+     spills);
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built (two parts) on the
      card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
@@ -53,12 +57,15 @@ Phases, each fatal on failure, each timed:
      weights cut to 2 layers in float32 on the card and on the CPU (logits
      within 1e-3, |a - b| <= 1e-3 (1 + |b|), tokens equal); K8 through
      ``ops.flash_attention`` on layer 0's prefill operands (against
-     ``layers.attention_full``), on the last decode step's operands
-     (against ``layers.attention_decode``) and on a phi3-medium-14b-wide
-     GQA shape; then K8 timed at the prefill and decode shapes beside its
-     plain version, ``scaled_dot_product_attention`` (timed only) and its
-     bound (bytes over 3.35 TB/s, or FLOPs over 989 TFLOP/s for bf16
-     operands and 67 TFLOP/s for float32).
+     ``layers.attention_full``, on the tc route), on the last decode step's
+     operands (against ``layers.attention_decode``, on the split route) and
+     on a phi3-medium-14b-wide GQA shape (tc), each within 0.05 and, against
+     the plain version, within ``bf16_allowance``; then K8 timed at those
+     three shapes beside the SIMT route's kernel at the same shape, its
+     plain version, ``scaled_dot_product_attention`` (timed only, also
+     under its FlashAttention-2 backend alone) and its bound
+     (bytes over 3.35 TB/s, or FLOPs over 989 TFLOP/s for bf16 operands
+     and 67 TFLOP/s for float32).
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
@@ -68,9 +75,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -136,23 +145,38 @@ GQA_SHAPE = (4, 1024, 1024, 40, 10, 128)
 # difference must stay within 0.05 of their RMS
 LM_DECODE_TOL = 0.05
 # K8 at phase 2's shapes (tests/test_torch_cuda.py's FLASH_CASES): B, Sq,
-# Sk, H, Hkv, D, causal, kv_len, bq, bk
+# Sk, H, Hkv, D, causal, kv_len, bq, bk, and the route the bf16 call takes
+# by kernels/flash_attention.py's route table (float32 calls take simt)
 FLASH_CASES = [
-    (2, 256, 256, 4, 2, 64, True, None, 128, 128),
-    (1, 512, 512, 8, 8, 128, True, None, 256, 256),
-    (2, 256, 512, 4, 1, 64, False, 450, 128, 128),
-    (1, 128, 1024, 2, 2, 256, False, None, 128, 512),
-    (1, 256, 256, 4, 4, 64, True, 200, 64, 64),
-    (2, 256, 256, 2, 2, 256, True, None, 512, 512),
-    (4, 1, 1056, 16, 16, 256, False, 1055, 512, 1056),
-    (2, 1, 512, 4, 2, 128, False, 1, 512, 512),
-    (1, 64, 128, 2, 1, 64, False, 0, 64, 64),
-    (1, 128, 256, 4, 2, 64, True, None, 128, 256),
-    (2, 96, 160, 4, 2, 64, True, 150, 32, 32),
-    (2, 32, 32, 4, 2, 16, True, None, 512, 512),
-    (1, 80, 80, 2, 2, 80, True, None, 16, 16),
-    (1, 48, 48, 2, 1, 20, False, 40, 16, 16),
-    (1, 256, 256, 40, 10, 128, True, None, 128, 128),
+    (2, 256, 256, 4, 2, 64, True, None, 128, 128, "tc"),
+    (1, 512, 512, 8, 8, 128, True, None, 256, 256, "tc"),
+    (2, 256, 512, 4, 1, 64, False, 450, 128, 128, "tc"),
+    (1, 128, 1024, 2, 2, 256, False, None, 128, 512, "tc"),
+    (1, 256, 256, 4, 4, 64, True, 200, 64, 64, "tc"),
+    (2, 256, 256, 2, 2, 256, True, None, 512, 512, "tc"),
+    (4, 1, 1056, 16, 16, 256, False, 1055, 512, 1056, "split"),
+    (2, 1, 512, 4, 2, 128, False, 1, 512, 512, "split"),
+    (1, 64, 128, 2, 1, 64, False, 0, 64, 64, "simt"),
+    (1, 128, 256, 4, 2, 64, True, None, 128, 256, "tc"),
+    (2, 96, 160, 4, 2, 64, True, 150, 32, 32, "tc"),
+    (2, 32, 32, 4, 2, 16, True, None, 512, 512, "simt"),
+    (1, 80, 80, 2, 2, 80, True, None, 16, 16, "simt"),
+    (1, 48, 48, 2, 1, 20, False, 40, 16, 16, "simt"),
+    (1, 256, 256, 40, 10, 128, True, None, 128, 128, "tc"),
+    # K8's Hopper routes (tests/test_torch_cuda.py's FLASH_ROUTE_CASES):
+    # ragged Sq and Sk at D = 128, Sq > Sk and Sq < Sk causal at D = 256,
+    # kv_len mid-tile with causal, decode against an 8192-long cache at
+    # kv_len 1, 4097 and 8192, 4:1 GQA decode at D = 128, gemma-7b prefill
+    (1, 200, 200, 2, 1, 128, True, None, 512, 512, "tc"),
+    (2, 96, 160, 4, 2, 128, True, None, 512, 512, "tc"),
+    (1, 320, 192, 2, 2, 256, True, None, 512, 512, "tc"),
+    (1, 130, 384, 2, 2, 256, True, None, 512, 512, "tc"),
+    (2, 192, 256, 4, 2, 64, True, 100, 512, 512, "tc"),
+    (2, 1, 8192, 4, 4, 256, False, 1, 512, 512, "split"),
+    (2, 1, 8192, 4, 4, 256, False, 4097, 512, 512, "split"),
+    (2, 1, 8192, 4, 4, 256, False, 8192, 512, 512, "split"),
+    (2, 1, 2048, 8, 2, 128, False, 2000, 512, 512, "split"),
+    (4, 1024, 1024, 16, 16, 256, True, None, 512, 512, "tc"),
 ]
 
 
@@ -581,25 +605,116 @@ def flash_inputs(seed: int, shape: tuple, dtype, dev) -> list:
             for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
 
 
+def flash_routed(what: str, want_route: str, q, k, v, **kw) -> torch.Tensor:
+    """``ops.flash_attention`` on the card, which must take ``want_route``
+    (by K8's route counter) and launch once."""
+    from repro_torch.kernels import ops
+    before, routes = ops.launches()["flash_attention"], ops.flash_routes()
+    out = ops.flash_attention(q, k, v, **kw)
+    routes[want_route] += 1
+    if (ops.flash_routes() != routes
+            or ops.launches()["flash_attention"] != before + 1):
+        raise AssertionError(f"K8 {what}: routes {ops.flash_routes()} and "
+                             f"launches {ops.launches()['flash_attention']}"
+                             f", want one {want_route!r} call")
+    return out
+
+
+def expect_k8(name: str, got: torch.Tensor, want: torch.Tensor, v,
+              rounded_p: bool) -> tuple[float, float]:
+    """K8's bf16 output against ``want`` elementwise within
+    ``flash_attention.bf16_allowance`` → (max |got - want|, the largest
+    share of its allowance an element takes)."""
+    from repro_torch.kernels import flash_attention as fa
+    err = expect_close(name, got, want, 0.05)
+    allow = fa.bf16_allowance(want, v, rounded_p=rounded_p)
+    share = float(((got.float() - want.float()).abs() / allow).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{name}: an element is {share} times its "
+                             f"allowance (max abs difference {err})")
+    return err, share
+
+
 def check_k8(dev) -> None:
-    """K8 against its plain version on the card at FLASH_CASES, float32
-    within 1e-4 (sums in another order) and bf16 within 0.05 (the output's
-    rounding, the reference's bf16 tolerance)."""
-    from repro_torch.kernels import flash_attention as fa, ops
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    """K8 against its plain version on the card at FLASH_CASES: float32
+    within 1e-4 (sums in another order); bf16 within 0.05 (the reference's
+    bf16 tolerance) and elementwise within ``bf16_allowance`` (the tc route
+    rounds p to bf16, split and simt do not).  Each call must take the
+    route FLASH_CASES states (float32: simt), and every route must run."""
+    from repro_torch.kernels import flash_attention as fa
+    worst = {"float32": 0.0, "tc": [0.0, 0.0], "split": [0.0, 0.0],
+             "simt": [0.0, 0.0]}
+    seen = {"tc": 0, "split": 0, "simt": 0}
     for i, case in enumerate(FLASH_CASES):
-        causal, kv_len, bq, bk = case[6:]
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.05)):
+        causal, kv_len, bq, bk, bf16_route = case[6:]
+        kw = dict(causal=causal, kv_len=kv_len, bq=bq, bk=bk)
+        for dtype, route in ((torch.float32, "simt"),
+                             (torch.bfloat16, bf16_route)):
             q, k, v = flash_inputs(80 + i, case[:6], dtype, dev)
-            kw = dict(causal=causal, kv_len=kv_len, bq=bq, bk=bk)
-            err = expect_close(f"K8 {case} {dtype}",
-                               ops.flash_attention(q, k, v, **kw),
-                               fa.flash_attention_plain(q, k, v, **kw), tol)
-            worst[dtype] = max(worst[dtype], err)
+            name = f"K8 {case[:10]} {dtype} ({route})"
+            got = flash_routed(name, route, q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            if dtype == torch.float32:
+                worst["float32"] = max(worst["float32"],
+                                       expect_close(name, got, want, 1e-4))
+            else:
+                err, share = expect_k8(name, got, want, v, route == "tc")
+                worst[route] = [max(worst[route][0], err),
+                                max(worst[route][1], share)]
+            seen[route] += 1
+    if not all(seen.values()):
+        raise AssertionError(f"K8: a route never ran in phase 2: {seen}")
     log(f"K8 within tolerance of plain on {len(FLASH_CASES)} cases x float32 "
         f"and bf16 (GQA 1-4:1, causal and full, kv_len 0/1/ragged, Sq = 1, "
-        f"D 16-256, ragged tiles): max abs error {worst[torch.float32]} "
-        f"(float32, tolerance 1e-4), {worst[torch.bfloat16]} (bf16, 0.05)")
+        f"D 16-256, ragged tiles, caches of 8192), each on its stated "
+        f"route: float32 max abs error {worst['float32']} (tolerance 1e-4); "
+        f"bf16 max abs error and largest share of the elementwise allowance "
+        f"by route {worst}; calls by route {seen}")
+    log(k8_resources())
+
+
+def k8_resources() -> str:
+    """Registers, stack frame and local memory of each kernel of K8's tc
+    and split routes, as ``cuobjdump --dump-resource-usage`` reads them
+    from the built library; fatal where one uses a stack frame or local
+    memory (spilled registers)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    dump = subprocess.run(
+        [str(tool), "--dump-resource-usage",
+         str(_build.lib_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    names = {"flash_tc_kernel": "tc", "partial_kernel": "split partials",
+             "combine_kernel": "split combine"}
+    rows, fn = [], None
+    for line in dump.splitlines():
+        m = re.search(r"Function (\S+?):(\s|$)", line)
+        if m:
+            fn = m.group(1)
+        regs = re.search(r"REG:(\d+) STACK:(\d+) .*LOCAL:(\d+)", line)
+        if regs and fn:
+            kind = next((v for k, v in names.items() if k in fn), None)
+            if kind:
+                rows.append((kind, fn, *map(int, regs.groups())))
+            fn = None
+    if not any(r[0] == "tc" for r in rows):
+        raise AssertionError(f"K8: no tc kernel in the resource dump:\n"
+                             f"{dump[:2000]}")
+    filt = Path(_build._nvcc()).parent / "cu++filt"
+    if filt.exists():               # demangled, without the parameter list
+        plain = subprocess.run([str(filt)], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(plain) == len(rows):
+            rows = [(r[0], n[:n.rfind("(")] if n.endswith(")") else n,
+                     *r[2:]) for r, n in zip(rows, plain)]
+    for kind, fn, reg, stack, local in rows:
+        if stack or local:
+            raise AssertionError(f"K8 {kind} kernel {fn} spills: STACK "
+                                 f"{stack}, LOCAL {local}")
+    found = [f"{kind} {fn}: REG {reg} STACK {stack} LOCAL {local}"
+             for kind, fn, reg, stack, local in rows]
+    return "K8 kernels' resources (cuobjdump): " + "; ".join(found)
 
 
 # --------------------------------------------------------------------------
@@ -883,6 +998,18 @@ def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time a call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's work per call is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=5, warm=1) / iters
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
         if a.numel() else 0
@@ -1100,11 +1227,17 @@ def flash_work(q, k, causal: bool, kv_len) -> tuple[int, int]:
 
 
 def time_k8(q, k, v, *, causal: bool, kv_len, bk: int) -> dict:
-    """K8 beside its plain version, torch's scaled_dot_product_attention
-    (timed only; top-left causal as the reference's mask) and its bound."""
+    """K8 on its route beside the SIMT route's kernel at the same shape, its
+    plain version, torch's scaled_dot_product_attention (timed only;
+    top-left causal as the reference's mask; also under its
+    FlashAttention-2 backend alone) and its bound.  ``ms`` times
+    back-to-back wrapper calls; ``graph_ms`` the same calls replayed from a
+    CUDA graph (the device's time alone)."""
     from repro_torch.kernels import flash_attention as fa
     kw = dict(causal=causal, kv_len=kv_len, bk=bk)
     kern = lambda: fa.flash_attention(q, k, v, **kw)
+    simt = lambda: fa._launch(q, k, v, route="simt", causal=causal,
+                              kv_len=kv_len)
     plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
@@ -1117,9 +1250,22 @@ def time_k8(q, k, v, *, causal: bool, kv_len, bk: int) -> dict:
     nbytes, flops = flash_work(q, k, causal, kv_len)
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else OPS_PER_S
     b_ms, b_by = bound(nbytes, flops, peak)
+    # SDPA held to its FlashAttention-2 backend, an mma.sync kernel like the
+    # tc route's (null where the backend declines the call, as with a mask)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # why the backend declines
+        try:
+            fa2_ms = cuda_ms(library)
+        except RuntimeError:
+            fa2_ms = None
     return {"max_abs_err": max_float_err(kern(), plain()),
-            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=5),
+            "k8_route": fa._route(q, k, v, causal, kv_len),
+            "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+            "simt_ms": cuda_ms(simt, iters=10),
+            "plain_ms": cuda_ms(plain, iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library),
+            "library_fa2_ms": fa2_ms,
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, "
                      f"causal {causal}, kv_len {kv_len}, {flops} FLOPs, "
                      f"{nbytes} bytes"}
@@ -1236,38 +1382,50 @@ def serve_full_width(dev) -> dict:
     cos, sin = tfm.rope_tables(torch.arange(LM_PROMPT, device=dev),
                                LM_BATCH, cfg)
     q, k, v = tfm.layer_qkv(params.layers[0], x, cos, sin, cfg)
+    # against the models' attention (which rounds p to bf16 too) within the
+    # reference's 0.05; against the plain version within bf16_allowance
+    got = flash_routed("layer 0 prefill", "tc", q, k, v, causal=True)
     e_pre = expect_close("K8 on layer 0's prefill operands vs attention_full",
-                         ops.flash_attention(q, k, v, causal=True),
-                         L.attention_full(q, k, v), 0.05)
+                         got, L.attention_full(q, k, v), 0.05)
+    e_pre_plain = expect_k8("K8 on layer 0's prefill operands vs plain", got,
+                            fa.flash_attention_plain(q, k, v, causal=True), v,
+                            True)
     cache, token, pos = timer.last
     xd = tfm.embed_tokens(params, token[:, None], cfg)
     cos, sin = tfm.rope_tables(torch.tensor([pos], device=dev), LM_BATCH, cfg)
     qd = tfm.layer_qkv(params.layers[0], xd, cos, sin, cfg)[0]
     kc, vc = cache["k"][0], cache["v"][0]
+    dkw = dict(causal=False, kv_len=pos + 1, bk=kc.shape[1])
+    got = flash_routed("last decode step", "split", qd, kc, vc, **dkw)
     e_dec = expect_close(
-        "K8 on the last decode step's operands vs attention_decode",
-        ops.flash_attention(qd, kc, vc, causal=False, kv_len=pos + 1,
-                            bk=kc.shape[1]),
+        "K8 on the last decode step's operands vs attention_decode", got,
         L.attention_decode(qd, kc, vc, pos + 1), 0.05)
+    e_dec_plain = expect_k8(
+        "K8 on the last decode step's operands vs plain", got,
+        fa.flash_attention_plain(qd, kc, vc, **dkw), vc, False)
     gq, gk, gv = flash_inputs(85, GQA_SHAPE, torch.bfloat16, dev)
-    got = ops.flash_attention(gq, gk, gv, causal=True)
+    got = flash_routed("GQA 40:10 prefill", "tc", gq, gk, gv, causal=True)
     e_gqa = expect_close("K8 at phi3-medium-14b's GQA width vs attention_full",
                          got, L.attention_full(gq, gk, gv), 0.05)
-    e_gqa_plain = expect_close(
+    e_gqa_plain = expect_k8(
         "K8 at phi3-medium-14b's GQA width vs plain", got,
-        fa.flash_attention_plain(gq, gk, gv, causal=True), 0.05)
-    del gq, gk, gv, got
+        fa.flash_attention_plain(gq, gk, gv, causal=True), gv, True)
+    del got
     launches = ops.launches()["flash_attention"]
     if launches == 0:
         raise AssertionError("K8 never ran in phase 5")
-    log(f"K8 on the model's operands: prefill q {tuple(q.shape)} vs "
-        f"attention_full max abs {e_pre}; decode q {tuple(qd.shape)} over the "
-        f"{kc.shape[1]}-long cache, kv_len {pos + 1}, vs attention_decode "
-        f"{e_dec}; GQA 40:10 at D=128 vs attention_full {e_gqa}, vs plain "
-        f"{e_gqa_plain} (tolerance 0.05, bf16); K8 launches {launches}")
+    log(f"K8 on the model's operands (bf16): prefill q {tuple(q.shape)} vs "
+        f"attention_full max abs {e_pre} (tolerance 0.05), vs plain (max "
+        f"abs, share of the allowance) {e_pre_plain}; decode q "
+        f"{tuple(qd.shape)} over the {kc.shape[1]}-long cache, kv_len "
+        f"{pos + 1}, vs attention_decode {e_dec}, vs plain {e_dec_plain}; "
+        f"GQA 40:10 at D=128 vs attention_full {e_gqa}, vs plain "
+        f"{e_gqa_plain}; K8 launches {launches}, calls by route "
+        f"{ops.flash_routes()}")
     timed = {"prefill": (q, k, v, dict(causal=True, kv_len=None, bk=512)),
-             "decode": (qd, kc.clone(), vc.clone(),
-                        dict(causal=False, kv_len=pos + 1, bk=kc.shape[1]))}
+             "decode": (qd, kc.clone(), vc.clone(), dkw),
+             "gqa_prefill": (gq, gk, gv, dict(causal=True, kv_len=None,
+                                              bk=512))}
     # where a request's time goes: one more prefill, and the last decode
     # step once more on its own cache
     profile_report(f"{LM_ARCH} prefill", lambda: tfm.prefill(params, prompt,
@@ -1447,7 +1605,8 @@ def main() -> int:
     source, replaces = REPLACES["flash_attention"]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": source, "replaces": replaces,
-                    "launches": lm_path["launches"], **k8["prefill"]})
+                    "launches": lm_path["launches"], **k8.pop("prefill"),
+                    "other_shapes": k8})
     phase_done(5, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

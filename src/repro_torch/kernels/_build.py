@@ -18,6 +18,7 @@ libraries this process compiled with ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -73,10 +74,20 @@ SIGNATURES = {
     "repro_flash_attention": ("flash_attention",
                               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P, _P]),
+    # q, k, v, B, Sq, Sk, H, Hkv, D, causal, kv_len (-1: none), out, stream
+    "repro_flash_attention_tc": ("flash_attention",
+                                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P, _P]),
+    # q, k, v, B, Sq, Sk, H, Hkv, D, n_visible, n_split, chunk, part_acc,
+    # part_ml, out, stream
+    "repro_flash_decode": ("flash_attention",
+                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -129,7 +140,11 @@ def build_all() -> dict[str, Path]:
 
 
 def function(name: str):
-    """The C entry ``name`` with its argtypes set (builds on first use)."""
+    """The C entry ``name`` with its argtypes set (builds on first use; later
+    calls return the same object, so a launch pays no lookup)."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
     stem, argtypes = SIGNATURES[name]
     with _lock:
         lib = _libs.get(stem)
@@ -141,6 +156,7 @@ def function(name: str):
     fn = getattr(lib, name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _fns[name] = fn
     return fn
 
 
@@ -167,11 +183,27 @@ def kernel_path(*tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise RuntimeError(f"no kernels for device type {dev.type!r}")
-    cap = torch.cuda.get_device_capability(dev)
+    cap = _capability(torch.cuda.current_device() if dev.index is None
+                      else dev.index)
     if cap < (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; {dev} has "
                            f"compute capability {cap[0]}.{cap[1]}")
     return True
+
+
+@functools.lru_cache(maxsize=None)
+def _capability(index: int) -> tuple[int, int]:
+    return torch.cuda.get_device_capability(index)
+
+
+def sm_count(index: int | None) -> int:
+    """The number of SMs of CUDA device ``index`` (None: the current one)."""
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -1,6 +1,13 @@
 // K8: flash attention forward (GQA, causal and kv_len masks, float32
 // accumulation).
 //
+// This library holds K8's three routes (kernels/flash_attention.py::_route
+// picks one a call): the tensor-core route (flash_attention_tc.cuh, entry
+// repro_flash_attention_tc), the split-KV route (flash_decode.cuh, entry
+// repro_flash_decode) and, below, the SIMT route (entry
+// repro_flash_attention), which takes float32, the other head widths,
+// kv_len = 0 and unaligned operands.
+//
 // Replaces src/repro/kernels/flash_attention.py::flash_attention
 // (pl.pallas_call, body _flash_kernel).  The TPU kernel runs a grid
 // (B, H, n_q, n_k) whose last axis is sequential: it carries the online
@@ -42,6 +49,9 @@
 #include <cmath>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention_tc.cuh"
+#include "flash_decode.cuh"
 
 namespace {
 
@@ -315,6 +325,69 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       return launch_t<float>(q, k, v, B, Sq, Sk, H, Hkv, D, causal, kv_len, out, st);
     case 1:
       return launch_t<__nv_bfloat16>(q, k, v, B, Sq, Sk, H, Hkv, D, causal, kv_len, out, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The tensor-core route (flash_attention_tc.cuh): bf16 q (B, Sq, H, D), k/v
+// (B, Sk, Hkv, D), out (B, Sq, H, D), contiguous and 16-byte aligned, D in
+// {64, 128, 256}; kv_len -1 means no kv_len mask, else kv_len >= 1.  The
+// CTA's shape is a function of D alone (flash_tc::Tile).
+extern "C" int repro_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, int B, int Sq, int Sk,
+                                        int H, int Hkv, int D, int causal,
+                                        int kv_len, void* out, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
+      kv_len == 0 || kv_len < -1 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return flash_tc::launch<64>(q, k, v, B, Sq, Sk, H, Hkv, causal, kv_len, out, st);
+    case 128:
+      return flash_tc::launch<128>(q, k, v, B, Sq, Sk, H, Hkv, causal, kv_len, out, st);
+    case 256:
+      return flash_tc::launch<256>(q, k, v, B, Sq, Sk, H, Hkv, causal, kv_len, out, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The split-KV route (flash_decode.cuh): bf16 q (B, Sq, H, D) with
+// Sq H / Hkv <= 8 rows a KV head, k/v (B, Sk, Hkv, D), out (B, Sq, H, D),
+// contiguous and 16-byte aligned, D in {64, 128, 256}, non-causal; keys
+// [0, n_visible) in n_split chunks of `chunk` keys, every chunk non-empty;
+// part_acc float32 (B, Hkv, n_split, rows, D), part_ml float32 (B, Hkv,
+// n_split, rows, 2).  Two launches: the partials, then the combine.
+extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
+                                  int B, int Sq, int Sk, int H, int Hkv,
+                                  int D, int n_visible, int n_split,
+                                  int chunk, void* part_acc, void* part_ml,
+                                  void* out, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
+      B > 65535 || Hkv > 65535 ||
+      Sq * (H / Hkv) > flash_decode::kSplitRows || n_visible < 1 ||
+      n_visible > Sk || chunk < 1 || n_split < 1 || n_split > 65535 ||
+      static_cast<long long>(n_split) * chunk < n_visible ||
+      static_cast<long long>(n_split - 1) * chunk >= n_visible ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* pa = static_cast<float*>(part_acc);
+  auto* pm = static_cast<float*>(part_ml);
+  switch (D) {
+    case 64:
+      return flash_decode::launch_d<64>(q, k, v, B, Sq, Sk, H, Hkv, n_visible, n_split, chunk, pa, pm, out, st);
+    case 128:
+      return flash_decode::launch_d<128>(q, k, v, B, Sq, Sk, H, Hkv, n_visible, n_split, chunk, pa, pm, out, st);
+    case 256:
+      return flash_decode::launch_d<256>(q, k, v, B, Sq, Sk, H, Hkv, n_visible, n_split, chunk, pa, pm, out, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,7 +22,32 @@ order of float sums alone.  Both are kept, with the reference's check
 ``Sq % min(bq, Sq) == 0 and Sk % min(bk, Sk) == 0``, so that the port
 accepts and refuses the same calls.  The plain version tiles the keys by
 ``bk`` as the reference does (its rows are independent, so all query rows
-run at once); the CUDA kernel picks its own tiles.
+run at once); the CUDA kernels pick their own tiles.
+
+On the card a call takes one of three routes, chosen by ``_route`` from
+dtype, shapes, masks and alignment alone (deterministic; no route falls
+back to another or to the plain version):
+
+=========  ===============================================  =====================
+route      takes                                            kernel (``csrc/``)
+=========  ===============================================  =====================
+``simt``   float32, or D not in {64, 128, 256}, or          ``flash_attention.cu``
+           ``kv_len`` <= 0, or Sk = 0, or q, k or v not     (CUDA cores, float32,
+           16-byte aligned                                  every tile visited)
+``split``  bf16, D in {64, 128, 256}, ``causal=False``,     ``flash_decode.cuh``
+           ``kv_len`` != 0, Sq x H / Hkv <= 8 (the rows     (split-KV partials,
+           of one KV head's group)                          then the combine)
+``tc``     every other bf16 call with D in {64, 128, 256}   ``flash_attention_tc.cuh``
+                                                            (mma.sync bf16, masked
+                                                            tiles skipped)
+=========  ===============================================  =====================
+
+The ``tc`` route rounds p to bf16 before P·V (the reference multiplies p in
+float32); ``split`` and ``simt`` keep p in float32.  ``bf16_allowance``
+states, elementwise, how far a bf16 output may lie from the plain version's
+on each side of that line (always within the reference's bf16 tolerance of
+0.05).  ``LAUNCHES["flash_attention"]`` counts one per call (the split
+route's two launches included); ``ROUTES`` counts the calls by route.
 """
 
 from __future__ import annotations
@@ -35,8 +60,16 @@ from repro_torch.kernels import _build
 DEFAULT_BQ = 512
 DEFAULT_BK = 512
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256                # the CUDA kernel's widest head
+MAX_HEAD_DIM = 256                # the SIMT kernel's widest head
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TC_WIDTHS = (64, 128, 256)        # head widths of the tc and split routes
+SPLIT_MAX_ROWS = 8                # query rows a split CTA holds (Sq H / Hkv)
+# the tc kernel's CTA by D, fixed at compile time (flash_tc::Tile in
+# csrc/flash_attention_tc.cuh): warps (16 query rows each), keys a KV tile
+TC_TILES = {64: (4, 64), 128: (4, 32), 256: (8, 64)}
+SPLIT_MIN_CHUNK = 64              # keys a split CTA streams, at least
+SPLIT_CTAS_PER_SM = 4             # split CTAs the grid aims for, per SM
+ROUTES = {"tc": 0, "split": 0, "simt": 0}
 
 
 def _check_tiles(q, k, bq: int, bk: int) -> tuple[int, int]:
@@ -91,12 +124,98 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.to(q.dtype).transpose(1, 2).contiguous()
 
 
+def bf16_allowance(want: torch.Tensor, v: torch.Tensor, *,
+                   rounded_p: bool) -> torch.Tensor:
+    """The largest |out - want| each element of a bf16 route's output may
+    show against ``want``, the plain version's output on the same inputs
+    (``v`` the values): ``atol + 2**-6 |want|``, capped at 0.05.
+
+    2**-6 |want| covers the two outputs' bf16 rounding, one step of at most
+    2**-7 |x| on either side of a binade edge.  Where both sides keep p in
+    float32 (split, simt) they differ only by the order of float32 sums
+    before that rounding: atol 1e-4.  Where one side rounds p to bf16 before
+    P·V (tc, ``rounded_p``), each weight moves by up to 2**-9 of itself and
+    the output by up to 2**-8 max|V| if every error fell one way; they fall
+    both ways, and atol is 2**-9 max|V|."""
+    atol = 2.0 ** -9 * float(v.abs().max()) if rounded_p else 1e-4
+    return torch.clamp_max(atol + 2.0 ** -6 * want.float().abs(), 0.05)
+
+
+def _route(q, k, v, causal: bool, kv_len) -> str:
+    """The route a call on the card takes: "tc", "split" or "simt" (see the
+    module docstring).  Pure: dtype, shapes, masks and alignment only."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (q.dtype != torch.bfloat16 or D not in TC_WIDTHS or Sk == 0
+            or (kv_len is not None and kv_len <= 0)
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        return "simt"
+    if not causal and Sq * (H // Hkv) <= SPLIT_MAX_ROWS:
+        return "split"
+    return "tc"
+
+
+def _split_plan(B: int, Hkv: int, n_visible: int,
+                n_sm: int) -> tuple[int, int]:
+    """(n_split, chunk) for the split route: contiguous chunks of ``chunk``
+    keys over [0, n_visible), every chunk non-empty, B·Hkv·n_split about
+    ``SPLIT_CTAS_PER_SM`` CTAs an SM, chunks of at least
+    ``SPLIT_MIN_CHUNK`` keys where there are that many."""
+    want = -(-SPLIT_CTAS_PER_SM * n_sm // (B * Hkv))
+    n_split = max(1, min(want, n_visible // SPLIT_MIN_CHUNK))
+    chunk = -(-n_visible // n_split)
+    return -(-n_visible // chunk), chunk
+
+
+def _launch(q, k, v, *, route: str, causal: bool, kv_len) -> torch.Tensor:
+    """Launch the kernel of ``route`` on checked CUDA operands and count it.
+    ``flash_attention`` calls it with ``_route``'s choice; the card tests
+    and chip_smoke.py also call it with route="simt" to hold a route
+    against the SIMT kernel at the same shape."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    kvl = -1 if kv_len is None else max(int(kv_len), 0)
+    stream = _build.stream_of(q)
+    with torch.cuda.device(q.device):
+        if route == "simt":
+            err = _build.function("repro_flash_attention")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
+                D, int(causal), kvl, _DTYPE_CODES[q.dtype], out.data_ptr(),
+                stream)
+        elif route == "tc":
+            err = _build.function("repro_flash_attention_tc")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
+                D, int(causal), kvl, out.data_ptr(), stream)
+        elif route == "split":
+            n_visible = Sk if kv_len is None else min(kvl, Sk)
+            n_split, chunk = _split_plan(B, Hkv, n_visible,
+                                         _build.sm_count(q.device.index))
+            # scratch: acc (B, Hkv, n_split, rows, D), then (m, l) a row
+            n_rows = B * Hkv * n_split * Sq * (H // Hkv)
+            part = torch.empty(n_rows * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            err = _build.function("repro_flash_decode")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
+                D, n_visible, n_split, chunk, part.data_ptr(),
+                part.data_ptr() + 4 * n_rows * D, out.data_ptr(), stream)
+        else:
+            raise ValueError(f"unknown route {route!r}")
+    _build.check(err, f"flash_attention ({route})")
+    _build.count("flash_attention")
+    ROUTES[route] += 1
+    return out
+
+
 def flash_attention(q, k, v, *, causal: bool = True, kv_len: int | None = None,
                     bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK) -> torch.Tensor:
     """K8's wrapper, the reference's signature: q (B, Sq, H, D), k/v
     (B, Sk, Hkv, D), float32 or bfloat16 → (B, Sq, H, D) in q's dtype.
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which needs q, k and v contiguous, of one dtype, and D ≤ 256."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``_route``'s route, which needs q, k and v contiguous, of one dtype,
+    and D ≤ 256."""
     if not _build.kernel_path(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      bq=bq, bk=bk)
@@ -114,14 +233,5 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
     _check_tiles(q, k, bq, bk)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn = _build.function("repro_flash_attention")
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
-                 D, int(causal), -1 if kv_len is None else max(int(kv_len), 0),
-                 _DTYPE_CODES[q.dtype], out.data_ptr(), _build.stream_of(q))
-    _build.check(err, "flash_attention")
-    _build.count("flash_attention")
-    return out
+    return _launch(q, k, v, route=_route(q, k, v, causal, kv_len),
+                   causal=causal, kv_len=kv_len)

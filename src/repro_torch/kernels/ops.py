@@ -13,8 +13,8 @@ memory, so no size of a CUDA tensor leaves the kernel.  For the same reason
 the fold entry points have no ``_fold_scan`` fallback: every CUDA fold stack
 goes to K4 or K5 whole.
 
-``launches()`` reads the per-kernel launch counts, ``reset_launches()`` sets
-them to 0.
+``launches()`` reads the per-kernel launch counts, ``flash_routes()`` K8's
+calls by route, ``reset_launches()`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -51,8 +51,16 @@ def launches() -> dict[str, int]:
 
 
 def reset_launches() -> None:
+    """Set every launch count, and K8's count of calls by route, to 0."""
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
+    for k in _flash_attention.ROUTES:
+        _flash_attention.ROUTES[k] = 0
+
+
+def flash_routes() -> dict[str, int]:
+    """K8's calls on the card by route ("tc", "split", "simt")."""
+    return dict(_flash_attention.ROUTES)
 
 
 # --------------------------------------------------------------------------

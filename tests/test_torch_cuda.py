@@ -466,6 +466,68 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# The Hopper routes (kernels/flash_attention.py::_route), bf16: B, Sq, Sk,
+# H, Hkv, D, causal, kv_len, route.  Ragged Sq and Sk at D = 128; Sq > Sk
+# and Sq < Sk causal at D = 256; kv_len ending mid-tile, causal; kv_len = 0
+# (simt); decode against an 8192-long cache at kv_len 1, 4097 and 8192;
+# 4:1 GQA decode at D = 128; the gemma-7b prefill shape.
+FLASH_ROUTE_CASES = [
+    (1, 200, 200, 2, 1, 128, True, None, "tc"),
+    (2, 96, 160, 4, 2, 128, True, None, "tc"),
+    (1, 320, 192, 2, 2, 256, True, None, "tc"),
+    (1, 130, 384, 2, 2, 256, True, None, "tc"),
+    (2, 192, 256, 4, 2, 64, True, 100, "tc"),
+    (1, 64, 128, 2, 1, 64, False, 0, "simt"),
+    (2, 1, 8192, 4, 4, 256, False, 1, "split"),
+    (2, 1, 8192, 4, 4, 256, False, 4097, "split"),
+    (2, 1, 8192, 4, 4, 256, False, 8192, "split"),
+    (2, 1, 2048, 8, 2, 128, False, 2000, "split"),
+    (4, 1024, 1024, 16, 16, 256, True, None, "tc"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_ROUTE_CASES)
+def test_flash_attention_routes_match_plain_and_simt(cuda, case):
+    """Each bf16 call takes its stated route, counts one launch and one
+    route, and agrees with the plain version and with the SIMT kernel at
+    the same shape elementwise within ``bf16_allowance`` (the tc route
+    rounds p to bf16, the others keep it in float32)."""
+    from repro_torch.kernels import flash_attention as tfa
+    causal, kv_len, route = case[6:]
+    q, k, v = (t.to(cuda) for t in flash_inputs(16, case, torch.bfloat16))
+    assert tfa._route(q, k, v, causal, kv_len) == route
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    before, routes = ops.launches()["flash_attention"], ops.flash_routes()
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == before + 1
+    routes[route] += 1
+    assert ops.flash_routes() == routes
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    simt = tfa._launch(q, k, v, route="simt", causal=causal, kv_len=kv_len)
+    for other in (want, simt):
+        allow = tfa.bf16_allowance(other, v, rounded_p=route == "tc")
+        assert bool(((got.float() - other.float()).abs() <= allow).all())
+
+
+def test_flash_attention_unaligned_takes_simt(cuda):
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = (t.to(cuda) for t in flash_inputs(
+        17, (1, 128, 128, 2, 2, 64), torch.bfloat16))
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    qu = buf[1:q.numel() + 1].view(q.shape)
+    qu.copy_(q)
+    assert qu.data_ptr() % 16 != 0 and tfa._route(qu, k, v, True, None) == "simt"
+    routes = ops.flash_routes()
+    got = ops.flash_attention(qu, k, v, causal=True)
+    torch.cuda.synchronize()
+    routes["simt"] += 1
+    assert ops.flash_routes() == routes
+    tc = ops.flash_attention(q, k, v, causal=True)
+    allow = tfa.bf16_allowance(got, v, rounded_p=True)
+    assert bool(((tc.float() - got.float()).abs() <= allow).all())
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels import flash_attention as tfa
     q, k, v = (t.to(cuda) for t in flash_inputs(
