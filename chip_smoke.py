@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (sm_90, an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-operands DIR]
 
 Phases, each fatal on failure, each timed:
   1. the card's name and power limit; build the hand kernels from
@@ -10,8 +10,11 @@ Phases, each fatal on failure, each timed:
      the default fastpfor serve's); ``serve --arch gemma-7b --tokens 4``
      (the smoke-reduced LM);
   2. each kernel against its plain PyTorch version on the card, exact
-     (torch.equal): K1 over widths 0–32 × six modes, K2a/K2b over M 128…2**16
-     and N 128…2**24 with all-SENTINEL and no-match rows, K3 over modes,
+     (torch.equal): K1 over widths 0–32, K = 1, 3, WARPS ± 1 blocks and
+     clamped word reads × six modes × rows 32/8, K2a/K2b over M 128…2**16
+     and N 1…2**24 with whole SENTINEL warps after a valid prefix,
+     all-SENTINEL and no-match rows, SENTINEL lanes between valid ones,
+     unsorted r and one valid lane past whole warps, K3 over modes,
      FastPFOR exceptions, pad ids and C 8…256, K4 over N 1…2**23 with
      SENTINEL and padded rows, holes in the incoming mask, inactive slots
      and J = 0, K5 over modes d1–dv × bp/fastpfor (with and without
@@ -23,9 +26,9 @@ Phases, each fatal on failure, each timed:
      shapes of tests/test_torch_cuda.py, float32 within 1e-4 and bf16
      within 0.05 and elementwise within ``flash_attention.bf16_allowance``,
      each call on the route (tc, split or simt) that FLASH_CASES states,
-     by K8's route counter, and every route run; K8's kernels' registers
-     and spills, read by ``cuobjdump`` (fatal if a tc or split kernel
-     spills);
+     by K8's route counter, and every route run; K8's, K1's, K2's and K3's
+     kernels' registers and spills, read by ``cuobjdump`` (fatal if one of
+     them spills);
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built (two parts) on the
      card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
@@ -43,10 +46,19 @@ Phases, each fatal on failure, each timed:
      pass: the deltas of the corpus's longest lists packed on the card
      through ``ops.pack_blocks`` (K6), held against the host encoder's
      words and unpacked back through K1;
-  4. each kernel timed with CUDA events at the largest shape the main path
-     gave it, beside its plain version, a library call where one computes
-     the same function, and its bound (bytes over 3.35 TB/s, or 32-bit
-     operations over 67 T/s, the larger); then the index is freed;
+  4. each kernel K1–K7 timed at the largest shape the main path gave it
+     (``repro_torch/launch/kernel_times.py``): ``ms`` back to back with
+     CUDA events, ``graph_ms`` replayed from a CUDA graph (the device
+     alone), ``host_us`` the host's time a call at a one-block shape,
+     beside its plain version, a library call where one computes the same
+     function (back to back and in a graph; for K2 also the four-op chain
+     searchsorted, gather, ==, != SENTINEL, and the valid lanes of r and
+     f), and its bound (bytes over 3.35 TB/s, or 32-bit operations over 67
+     T/s, the larger); K1 also at the largest call of its most frequent
+     size, with its calls by size (K to the next power of two); with
+     ``--save-operands DIR`` the K1, K2 and K3 operands go to
+     DIR/operands.pt, for ``kernel_times.py`` to time another tree's
+     kernels on; then the index is freed;
   5. the served LM at full width: gemma-7b as registered (28 layers,
      d_model 3072, 16 heads of 256, d_ff 24576, vocab 256000; 8,537,677,824
      float32 parameters from a seeded generator on the card, bf16 compute)
@@ -72,6 +84,7 @@ exits nonzero, printing no result, where there is no CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -87,8 +100,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-OPS_PER_S = 67e12              # H100 SXM 32-bit operations outside tensor cores
+from repro_torch.launch.kernel_times import (  # noqa: E402
+    OPS_PER_S, TIMERS, bound, cuda_ms, graph_ms, max_abs_err, time_k2)
+
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores (data sheet)
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
 N_QUERIES = 64
@@ -208,27 +222,50 @@ def expect_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
 # phase 2: kernels vs plain versions at test shapes
 # --------------------------------------------------------------------------
 
+def k1_blocks(rng, widths, rows: int) -> list:
+    """Blocks packed at ``widths`` (each holding its width's maximum), laid
+    out flat as ``bitpack.encode`` lays them out: [words, offsets, widths,
+    seeds] as numpy arrays."""
+    from repro_torch.core import bitpack
+    widths = np.asarray(widths, np.int32)
+    packed = []
+    for b in widths:
+        d = rng.integers(0, 1 << int(b), size=(rows, 128), dtype=np.uint64)
+        d[0, 0] = (1 << int(b)) - 1
+        packed.append(bitpack.pack_block_np(d.astype(np.uint32), int(b)))
+    per = [(rows * int(b) + 31) // 32 for b in widths]
+    words = (np.concatenate(packed) if sum(per)
+             else np.zeros((1, 128), np.uint32))
+    offs = np.concatenate([[0], np.cumsum(per[:-1])]).astype(np.int32)
+    seeds = rng.integers(0, 1 << 32, len(widths),
+                         dtype=np.uint64).astype(np.uint32)
+    return [words, offs, widths, seeds]
+
+
 def check_k1(dev, longest: list) -> None:
-    """K1 vs plain over the width sweep and on each (label, PackedList) of
+    """K1 vs plain over the width sweep, K = 1, 3, WARPS ± 1 blocks of
+    random widths, clamped word reads, and on each (label, PackedList) of
     ``longest``."""
     from repro_torch.core import bitpack
     from repro_torch.kernels import bitunpack
     rng = np.random.default_rng(1)
+    W = bitunpack.WARPS
     for rows in (32, 8):
-        packed = []
-        for b in range(33):
-            d = rng.integers(0, 1 << b, size=(rows, 128), dtype=np.uint64)
-            d[0, 0] = (1 << b) - 1
-            packed.append(bitpack.pack_block_np(d.astype(np.uint32), b))
-        widths = np.arange(33, dtype=np.int32)
-        offs = np.concatenate([[0], np.cumsum(widths[:-1])]).astype(np.int32)
-        seeds = rng.integers(0, 1 << 32, 33, dtype=np.uint64).astype(np.uint32)
-        args = [_t(a, dev) for a in (np.concatenate(packed), offs, widths,
-                                     seeds)]
-        for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
-            expect_equal(f"K1 widths 0-32 {mode} rows={rows}",
-                         bitunpack.unpack_blocks(*args, mode, rows),
-                         bitunpack.unpack_blocks_plain(*args, mode, rows))
+        cases = {"widths 0-32": k1_blocks(rng, np.arange(33), rows)}
+        for K in (1, 3, W - 1, W + 1):
+            cases[f"K={K}"] = k1_blocks(rng, rng.integers(0, 33, K), rows)
+        words = cases["widths 0-32"][0]
+        T = words.shape[0]
+        cases["clamped word reads"] = [
+            words, np.array([T - 3, T - 1, -2, T - 20, 0], np.int32),
+            np.array([17, 32, 9, 31, 0], np.int32),
+            np.array([7, 0xFFFFFFF0, 1, 2**31, 5], np.uint32)]
+        for what, arrays in cases.items():
+            args = [_t(a, dev) for a in arrays]
+            for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
+                expect_equal(f"K1 {what} {mode} rows={rows}",
+                             bitunpack.unpack_blocks(*args, mode, rows),
+                             bitunpack.unpack_blocks_plain(*args, mode, rows))
     for what, pl in longest:
         args = (pl.flat_words, pl.offsets, pl.widths, bitpack.seeds_of(pl),
                 pl.mode, pl.block_rows)
@@ -236,23 +273,36 @@ def check_k1(dev, longest: list) -> None:
                      bitunpack.unpack_blocks_plain(*args))
         log(f"K1 equal to plain on the {what} ({pl.n} ints, "
             f"{pl.num_blocks} blocks)")
-    log("K1 equal to plain: widths 0-32 x 6 modes x rows 32/8")
+    log(f"K1 equal to plain: widths 0-32, K = 1, 3, {W - 1}, {W + 1} blocks "
+        f"of random widths and clamped word reads x 6 modes x rows 32/8")
 
 
 def gallop_case(rng, B, M, N, kind):
+    """(r, f) rows: f sorted, its values in front, SENTINEL behind; r by
+    ``kind``: a sorted valid prefix then SENTINEL (mixed, no_match), all
+    SENTINEL, 'holes' (SENTINEL lanes between valid ones), 'unsorted',
+    'tail_one' (a prefix of 5 warps and one lane, all members)."""
     r = np.full((B, M), SENT, np.int32)
     f = np.full((B, N), SENT, np.int32)
     for b in range(B):
-        fv = np.unique(rng.integers(0, 1 << 30, N // 2))
+        fv = np.unique(rng.integers(0, 1 << 30, max(N // 2, 1)))
         f[b, : fv.size] = fv
         if kind == "all_sentinel":
+            continue
+        if kind == "tail_one":
+            r[b, :161] = fv[:161]
             continue
         rv = np.unique(rng.integers(0, 1 << 30, M // 2))
         if kind == "no_match":
             rv = np.setdiff1d(rv, fv)
         else:
             rv = np.union1d(rv[: M // 4], rng.choice(fv, M // 4))
-        r[b, : rv.size] = rv
+        if kind == "holes":
+            r[b, np.sort(rng.choice(M, rv.size, replace=False))] = rv
+        elif kind == "unsorted":
+            r[b, : rv.size] = rng.permutation(rv)
+        else:
+            r[b, : rv.size] = rv
     return r, f
 
 
@@ -262,7 +312,10 @@ def check_k2(dev) -> None:
     rng = np.random.default_rng(2)
     cases = [(128, 128, "mixed"), (1024, 1 << 16, "mixed"),
              (1 << 16, 1 << 24, "mixed"), (4096, 1 << 20, "all_sentinel"),
-             (1 << 16, 1 << 20, "no_match"), (1000, 3000, "mixed")]
+             (1 << 16, 1 << 20, "no_match"), (1000, 3000, "mixed"),
+             (1 << 16, 1 << 21, "tail_one"), (777, 1000, "holes"),
+             (1 << 15, 3001, "unsorted"), (300, 1, "mixed"),
+             (130, 1, "all_sentinel"), (100003, 1 << 20, "holes")]
     for M, N, kind in cases:
         r, f = gallop_case(rng, 2, M, N, kind)
         tr, tf = _t(r, dev), _t(f, dev)
@@ -272,8 +325,13 @@ def check_k2(dev) -> None:
         expect_equal(f"K2a M={M} N={N} {kind}",
                      ops.intersect_gallop(tr[0].contiguous(),
                                           tf[0].contiguous()), want[0])
+        if kind not in ("all_sentinel", "no_match") and not bool(want.any()):
+            raise AssertionError(f"K2 M={M} N={N} {kind}: no matches")
     log(f"K2a/K2b equal to plain on {len(cases)} (M, N) cases up to "
-        f"M=2**16, N=2**24, with all-SENTINEL and no-match rows")
+        f"M=2**16, N=2**24: valid prefixes then whole SENTINEL warps, "
+        f"all-SENTINEL and no-match rows, SENTINEL lanes between valid "
+        f"ones, unsorted r, one valid lane past whole warps, M not a "
+        f"multiple of 32, N = 1 and N not a power of two")
 
 
 def packed_operands(encs, rs, c_pad, dev):
@@ -286,7 +344,8 @@ def packed_operands(encs, rs, c_pad, dev):
     e_pad = max(max(bitpack.self_pads(e)[2] for e in encs), 1)
     cols = {k: [] for k in ("r", "words", "widths", "offsets", "maxes", "blk",
                             "exc_pos", "exc_add")}
-    m = its.pow2_bucket(max(len(r) for r in rs))
+    # at least one whole SENTINEL warp after every row's valid prefix
+    m = its.pow2_bucket(max(len(r) for r in rs) + 32)
     for enc, r in zip(encs, rs):
         lay = bitpack.layout_np(enc, k_pad, t_pad, e_pad)
         blk = bitpack.candidate_block_ids(lay.maxes[: enc.num_blocks], r)
@@ -318,6 +377,10 @@ def check_k3(dev) -> dict:
                 else bitpack.encode(f, mode=mode))
             for c_pad, r in ((8, sparse), (256, dense)):
                 args = packed_operands([enc, enc], [r, r[::2]], c_pad, dev)
+                if not bool((args[0].reshape(2, -1, 32) == SENT).all(-1)
+                            .any(-1).all()):
+                    raise AssertionError("K3 check: a row without whole "
+                                         "SENTINEL warps")
                 want = its.intersect_packed_batch(*args, mode=mode,
                                                   block_rows=enc.block_rows)
                 got = ops.intersect_packed_batch(*args, mode=mode,
@@ -329,7 +392,8 @@ def check_k3(dev) -> dict:
             if codec == "fastpfor" and enc.exc_pos.shape[0] == 0:
                 raise AssertionError("K3 check has no FastPFOR exceptions")
     log(f"K3 equal to plain on {n_checks} cases: modes d1/d2/d4/dm/dv, bp and "
-        f"fastpfor (with exceptions), pad ids, C = 8 and 256")
+        f"fastpfor (with exceptions), pad ids, C = 8 and 256, every row's "
+        f"valid prefix followed by whole SENTINEL warps")
     return {"encs": encs, "f": f, "dense": dense, "sparse": sparse}
 
 
@@ -673,19 +737,17 @@ def check_k8(dev) -> None:
     log(k8_resources())
 
 
-def k8_resources() -> str:
-    """Registers, stack frame and local memory of each kernel of K8's tc
-    and split routes, as ``cuobjdump --dump-resource-usage`` reads them
-    from the built library; fatal where one uses a stack frame or local
-    memory (spilled registers)."""
+def kernel_resources(stem: str, names: dict) -> list:
+    """(kind, kernel, REG, STACK, LOCAL) of each kernel of library ``stem``
+    whose mangled name contains a key of ``names`` (kind = its value), as
+    ``cuobjdump --dump-resource-usage`` reads them from the built library,
+    demangled where ``cu++filt`` is there; fatal where one uses a stack
+    frame or local memory (spilled registers)."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     dump = subprocess.run(
-        [str(tool), "--dump-resource-usage",
-         str(_build.lib_path("flash_attention"))],
+        [str(tool), "--dump-resource-usage", str(_build.lib_path(stem))],
         capture_output=True, text=True, check=True).stdout
-    names = {"flash_tc_kernel": "tc", "partial_kernel": "split partials",
-             "combine_kernel": "split combine"}
     rows, fn = [], None
     for line in dump.splitlines():
         m = re.search(r"Function (\S+?):(\s|$)", line)
@@ -697,9 +759,9 @@ def k8_resources() -> str:
             if kind:
                 rows.append((kind, fn, *map(int, regs.groups())))
             fn = None
-    if not any(r[0] == "tc" for r in rows):
-        raise AssertionError(f"K8: no tc kernel in the resource dump:\n"
-                             f"{dump[:2000]}")
+    if {r[0] for r in rows} != set(names.values()):
+        raise AssertionError(f"{stem}: kernels {sorted(names.values())} not "
+                             f"all in the resource dump:\n{dump[:2000]}")
     filt = Path(_build._nvcc()).parent / "cu++filt"
     if filt.exists():               # demangled, without the parameter list
         plain = subprocess.run([str(filt)], input="\n".join(r[1] for r in rows),
@@ -710,11 +772,32 @@ def k8_resources() -> str:
                      *r[2:]) for r, n in zip(rows, plain)]
     for kind, fn, reg, stack, local in rows:
         if stack or local:
-            raise AssertionError(f"K8 {kind} kernel {fn} spills: STACK "
+            raise AssertionError(f"{stem} {kind} kernel {fn} spills: STACK "
                                  f"{stack}, LOCAL {local}")
-    found = [f"{kind} {fn}: REG {reg} STACK {stack} LOCAL {local}"
-             for kind, fn, reg, stack, local in rows]
-    return "K8 kernels' resources (cuobjdump): " + "; ".join(found)
+    return rows
+
+
+def resources_line(what: str, rows: list) -> str:
+    return f"{what} kernels' resources (cuobjdump): " + "; ".join(
+        f"{kind} {fn}: REG {reg} STACK {stack} LOCAL {local}"
+        for kind, fn, reg, stack, local in rows)
+
+
+def k8_resources() -> str:
+    """K8's tc and split kernels' registers (``kernel_resources``)."""
+    return resources_line("K8", kernel_resources("flash_attention", {
+        "flash_tc_kernel": "tc", "partial_kernel": "split partials",
+        "combine_kernel": "split combine"}))
+
+
+def k1_k2_resources() -> str:
+    """K1's and K2's kernels' registers (``kernel_resources``); K3's
+    library carries K2's kernel too."""
+    return resources_line("K1/K2/K3", [
+        *kernel_resources("unpack_blocks", {"unpack_blocks_kernel": "K1"}),
+        *kernel_resources("gallop_tiles", {"gallop_kernel": "K2"}),
+        *kernel_resources("packed_gallop", {"gallop_kernel": "K3 gallop",
+                                            "packed_decode": "K3 decode"})])
 
 
 # --------------------------------------------------------------------------
@@ -723,19 +806,33 @@ def k8_resources() -> str:
 
 class Recorder:
     """Wraps a kernel wrapper and keeps the inputs of its largest call on the
-    main path, so phase 4 times the kernel at a main-path shape."""
+    main path, so phase 4 times the kernel at a main-path shape.  With
+    ``bucket`` it also counts the calls by ``bucket(*args)`` and keeps the
+    largest call of each bucket."""
 
-    def __init__(self, module, name, size):
+    def __init__(self, module, name, size, bucket=None):
         self.module, self.name, self.size = module, name, size
         self.inner = getattr(module, name)
         self.best, self.best_size = None, -1
+        self.bucket, self.counts, self.by_bucket = bucket, {}, {}
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
         s = self.size(*args, **kwargs)
         if s > self.best_size:
             self.best, self.best_size = (args, kwargs), s
+        if self.bucket is not None:
+            b = self.bucket(*args, **kwargs)
+            self.counts[b] = self.counts.get(b, 0) + 1
+            if s >= self.by_bucket.get(b, (None, -1))[1]:
+                self.by_bucket[b] = ((args, kwargs), s)
         return self.inner(*args, **kwargs)
+
+    def most_frequent(self) -> tuple:
+        """(bucket, its largest call's (args, kwargs)) of the bucket with the
+        most calls."""
+        b = max(self.counts, key=lambda k: (self.counts[k], -k))
+        return b, self.by_bucket[b][0]
 
     def restore(self):
         setattr(self.module, self.name, self.inner)
@@ -983,234 +1080,6 @@ def profile_report(what: str, run, items: str) -> None:
 # --------------------------------------------------------------------------
 # phase 4: timing at main-path shapes
 # --------------------------------------------------------------------------
-
-def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time a call: ``iters`` calls captured in one CUDA graph and
-    replayed, so the host's work per call is left out."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(iters):
-            fn()
-    return cuda_ms(graph.replay, iters=5, warm=1) / iters
-
-
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
-        if a.numel() else 0
-
-
-def bound(nbytes: float, nops: float,
-          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def time_k1(args, kwargs) -> dict:
-    from repro_torch.kernels import bitunpack
-    words, offsets, widths, seeds, mode, rows = args
-    kern = lambda: bitunpack.unpack_blocks(*args, **kwargs)
-    plain = lambda: bitunpack.unpack_blocks_plain(*args, **kwargs)
-    K = widths.shape[0]
-    nbytes = int(widths.to(torch.int64).sum()) * 512 + K * 12 + K * rows * 512
-    b_ms, b_by = bound(nbytes, K * rows * 128 * 12)
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": f"K={K} blocks x {rows} rows, mode {mode}"}
-
-
-def _gallop_bytes_ops(M: int, N: int, B: int = 1):
-    log2n = max((N - 1).bit_length(), 1)
-    return B * (M * 4 + M + min(N, M * log2n) * 4), B * M * log2n * 4
-
-
-def time_k2(args, kwargs, batched: int = 0) -> dict:
-    from repro_torch.core import intersect as its
-    from repro_torch.kernels import intersect_gallop
-    r, f = args
-    if batched:
-        r = r[None].expand(batched, -1).contiguous()
-        f = f[None].expand(batched, -1).contiguous()
-        kern = lambda: intersect_gallop.gallop_tiles_batched(r, f)
-    else:
-        kern = lambda: intersect_gallop.gallop_tiles(r, f)
-    plain = lambda: its.intersect_gallop(r, f)
-    library = lambda: torch.searchsorted(f, r)
-    M, N = r.shape[-1], f.shape[-1]
-    b_ms, b_by = bound(*_gallop_bytes_ops(M, N, max(batched, 1)))
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=10), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": cuda_ms(library),
-            "shape": f"B={max(batched, 1)} M={M} N={N}"}
-
-
-def time_k3(args, kwargs) -> dict:
-    from repro_torch.core import intersect as its
-    from repro_torch.kernels import intersect_gallop
-    r, words, widths, offsets, maxes, blk, exc_pos, exc_add = args
-    kern = lambda: intersect_gallop.packed_gallop_batched(*args, **kwargs)
-    plain = lambda: its.intersect_packed_batch(*args, **kwargs)
-    rows = kwargs["block_rows"]
-    B, M = r.shape
-    C, Kp = blk.shape[1], widths.shape[1]
-    ids = blk.to(torch.int64)
-    real = ids < Kp
-    wid = torch.gather(widths.to(torch.int64), 1, ids.clamp(max=Kp - 1))
-    per = rows * 128
-    ep = exc_pos.to(torch.int64)
-    touched = torch.zeros_like(ep, dtype=torch.bool)
-    for b in range(B):
-        eb = torch.div(ep[b], per, rounding_mode="floor")
-        touched[b] = (ep[b] >= 0) & torch.isin(eb, ids[b][real[b]])
-    nbytes = (int((wid * real).sum()) * 512 + int(real.sum()) * 16
-              + int(touched.sum()) * 8 + B * M * 5)
-    nops = int(real.sum()) * per * 12 + _gallop_bytes_ops(M, C * per, B)[1]
-    b_ms, b_by = bound(nbytes, nops)
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=10), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": f"B={B} M={M} C={C} blocks x {rows} rows, Kp={Kp}, "
-                     f"{int(real.sum())} real candidate blocks, mode "
-                     f"{kwargs['mode']}"}
-
-
-def _fold_work(valid, active, hit, N: int) -> tuple[int, int, list]:
-    """The search work of a mask fold as this run's data needs it: fold j
-    searches only the candidates still valid in its active rows, each with
-    ceil(log2 N) dependent loads, touching at most min(N, live · rounds)
-    ints of the row's list.  ``hit(j)`` is fold j's (B, M) match mask.
-    Returns (bytes of the lists touched, operations, live candidates
-    searched by each fold)."""
-    rounds = max((N - 1).bit_length(), 1)
-    nbytes = nops = 0
-    lives = []
-    v = valid
-    for j in range(active.shape[0]):
-        act = active[j][:, None]
-        live = (v & act).sum(-1).to(torch.int64)
-        lives.append(int(live.sum()))
-        nops += lives[-1] * rounds * 4
-        nbytes += int(torch.clamp(live * rounds, max=N).sum()) * 4
-        v = v & torch.where(act, hit(j), True)
-    return nbytes, nops, lives
-
-
-def time_k4(args, kwargs) -> dict:
-    from repro_torch.core import intersect as its
-    from repro_torch.kernels import megakernel
-    r, valid, folds, active = args
-    kern = lambda: megakernel.decoded_fold_batched(*args)
-    plain = lambda: megakernel.decoded_fold_plain(*args)
-    J, B, N = folds.shape
-    M = r.shape[1]
-    fold_bytes, nops, lives = _fold_work(
-        valid, active, lambda j: its.intersect_gallop(r, folds[j]), N)
-    # r, valid and the mask once each, the active flags, the touched folds
-    b_ms, b_by = bound(B * M * 6 + J * B + fold_bytes, nops)
-    # the time depends on the live candidates (a dead one stops early), so
-    # the shape note carries them; three rounds show the spread in one call
-    rounds = [cuda_ms(kern) for _ in range(3)]
-    return {"max_abs_err": max_abs_err(kern(), plain()),
-            "ms": sorted(rounds)[1], "plain_ms": cuda_ms(plain, iters=5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"J={J} B={B} M={M} N={N}, "
-                     f"{int(active.sum())} active slots, "
-                     f"{int(valid.sum())} valid candidates, live per fold "
-                     f"{lives}, rounds {rounds} ms"}
-
-
-def time_k5(args, kwargs) -> dict:
-    from repro_torch.core import intersect as its
-    from repro_torch.kernels import megakernel
-    (r, valid, words, widths, offsets, maxes, blk, exc_pos, exc_add,
-     active) = args
-    kern = lambda: megakernel.packed_fold_batched(*args, **kwargs)
-    plain = lambda: megakernel.packed_fold_plain(*args, **kwargs)
-    rows = kwargs["block_rows"]
-    per = rows * 128
-    Jp, B, C = blk.shape
-    M, Kp = r.shape[1], widths.shape[2]
-    ids = blk.to(torch.int64)
-    real = (ids < Kp) & active[:, :, None]
-    wid = torch.gather(widths.to(torch.int64), 2, ids.clamp(max=Kp - 1))
-    ep = exc_pos.to(torch.int64)
-    touched = 0
-    for j in range(Jp):
-        for b in range(B):
-            if bool(active[j, b]):
-                eb = torch.div(ep[j, b], per, rounding_mode="floor")
-                touched += int(((ep[j, b] >= 0)
-                                & torch.isin(eb, ids[j, b][real[j, b]])).sum())
-    _, fold_ops, lives = _fold_work(valid, active, lambda j: its.intersect_packed_batch(
-        r, words[j], widths[j], offsets[j], maxes[j], blk[j], exc_pos[j],
-        exc_add[j], **kwargs), C * per)
-    # as for K3, the window is scratch and not counted: the candidate
-    # blocks' words and metadata, their exceptions, r, valid, the mask and
-    # the active flags
-    nbytes = (int((wid * real).sum()) * 512 + int(real.sum()) * 16
-              + touched * 8 + B * M * 6 + Jp * B)
-    nops = int(real.sum()) * per * 12 + fold_ops
-    b_ms, b_by = bound(nbytes, nops)
-    window = Jp * B * C * per * 4
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=3, warm=1), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "window_bytes": window,
-            "shape": f"Jp={Jp} B={B} M={M} C={C} blocks x {rows} rows, "
-                     f"Kp={Kp}, {int(active.sum())} active slots, "
-                     f"{int(real.sum())} real candidate blocks, live per "
-                     f"fold {lives}, mode {kwargs['mode']}"}
-
-
-def time_k6(args, kwargs) -> dict:
-    from repro_torch.kernels import bitpack_pack
-    deltas, widths = args
-    kern = lambda: bitpack_pack.pack_blocks_padded(deltas, widths)
-    plain = lambda: bitpack_pack.pack_blocks_padded_plain(deltas, widths)
-    K = deltas.shape[0]
-    # a (32, 128) tile in and out, the width; per value a shift, an OR and
-    # the spill test, shift and OR
-    b_ms, b_by = bound(K * (2 * 32 * 512 + 4), K * 4096 * 6)
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": f"K={K} blocks x 32 rows, widths "
-                     f"{int(widths.min())}-{int(widths.max())}"}
-
-
-def time_k7(args, kwargs) -> dict:
-    from repro_torch.kernels import svb_decode
-    ctrl, data, doffs, seeds, mode, rows = args
-    kern = lambda: svb_decode.unpack_svb_blocks(*args)
-    plain = lambda: svb_decode.decode_svb(*args)
-    K, CW = ctrl.shape
-    DW = data.shape[0]
-    n = K * rows * 128
-    # control words, data words, offsets and seeds in once, 4-byte values
-    # out; per value some 16 operations (code, length, offset scan, two
-    # loads, shift, mask, prefix sum)
-    b_ms, b_by = bound(K * CW * 4 + DW * 4 + K * 8 + n * 4, n * 16)
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": f"K={K} blocks x {rows} rows, DW={DW} data words, "
-                     f"mode {mode}"}
-
 
 def flash_work(q, k, causal: bool, kv_len) -> tuple[int, int]:
     """K8's bytes (q, k, v and the output once each) and FLOPs (4 B H D
@@ -1468,7 +1337,74 @@ def phase_done(k: int, t0: float) -> float:
     return now
 
 
-def main() -> int:
+def time_kernels(recorders, launches: dict, save_dir=None) -> list:
+    """Phase 4: each recorded kernel timed at its largest main-path call
+    (K1 also at the largest call of its most frequent size, with its calls
+    by size), K2b on 8 copies of K2a's row; each must equal its plain
+    version there.  Returns the ``kernels`` records; with ``save_dir`` also
+    saves the K1, K2 and K3 operands."""
+    rows = []
+    for rec in recorders:
+        if rec.best is None:
+            raise AssertionError(f"{rec.name} was never called on the main "
+                                 f"path")
+        res = TIMERS[rec.name](*rec.best)
+        rows.append((rec.name, res))
+        if rec.name == "gallop_tiles":
+            rows.append(("gallop_tiles_batched",
+                         time_k2(*rec.best, batched=8)))
+    k1 = recorders[0]
+    bucket, freq_args = k1.most_frequent()
+    freq = TIMERS["unpack_blocks"](*freq_args)
+    if freq["max_abs_err"] != 0:
+        raise AssertionError("unpack_blocks: kernel differs from plain at the "
+                             "most frequent main-path call size")
+    rows[0][1]["k_histogram"] = {str(k): v for k, v in sorted(k1.counts.items())}
+    rows[0][1]["frequent"] = freq
+    log(f"unpack_blocks calls over phase 3 by K (the next power of two): "
+        f"{rows[0][1]['k_histogram']}; most frequent K <= {bucket}, timed at "
+        f"{freq.pop('shape')}: " + ", ".join(f"{k} {v}"
+                                              for k, v in freq.items()))
+    if save_dir is not None:
+        save_operands(save_dir, {
+            "unpack_blocks": ("unpack_blocks", *k1.best),
+            f"unpack_blocks@K={bucket}": ("unpack_blocks", *freq_args),
+            **{rec.name: (rec.name, *rec.best) for rec in recorders[1:3]}})
+    kernels = []
+    for kname, res in rows:
+        if res["max_abs_err"] != 0:
+            raise AssertionError(f"{kname}: kernel differs from plain at the "
+                                 f"main-path shape")
+        notes = {k: res.pop(k) for k in ("shape", "window_bytes") if k in res}
+        log(f"{kname} at {notes.pop('shape')}: " + ", ".join(
+            f"{k} {v}" for k, v in {**res, **notes}.items()))
+        source, replaces = REPLACES[kname]
+        kernels.append({"name": kname, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": launches[kname], **res})
+    return kernels
+
+
+def save_operands(save_dir: str, entries: dict) -> None:
+    """Write phase 4's operand sets (key → (kernel name, args, kwargs)) to
+    ``save_dir/operands.pt``, tensors on the host, for
+    ``repro_torch/launch/kernel_times.py`` to time other trees' kernels on."""
+    host = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+    out = {key: (name, tuple(host(a) for a in args),
+                 {k: host(v) for k, v in kwargs.items()})
+           for key, (name, args, kwargs) in entries.items()}
+    Path(save_dir).mkdir(parents=True, exist_ok=True)
+    torch.save(out, Path(save_dir) / "operands.pt")
+    log(f"phase 4 operands of {sorted(out)} saved to {save_dir}/operands.pt")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                            "CUDA card.")
+    p.add_argument("--save-operands", metavar="DIR", default=None,
+                   help="also write the operands phase 4 times K1, K2 and "
+                        "K3 on to DIR/operands.pt")
+    save_dir = p.parse_args(argv).save_operands
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
               file=sys.stderr)
@@ -1530,10 +1466,13 @@ def main() -> int:
     check_k6(dev)
     check_k7(dev)
     check_k8(dev)
+    log(k1_k2_resources())
     t_phase = phase_done(2, t_phase)
 
     recorders = [
-        Recorder(bitunpack, "unpack_blocks", lambda *a, **k: a[2].shape[0]),
+        Recorder(bitunpack, "unpack_blocks", lambda *a, **k: a[2].shape[0],
+                 bucket=lambda *a, **k: 1 << max(a[2].shape[0] - 1, 0)
+                 .bit_length()),
         Recorder(intersect_gallop, "gallop_tiles",
                  lambda r, f: r.shape[0] * max((f.shape[0] - 1).bit_length(), 1)),
         Recorder(intersect_gallop, "packed_gallop_batched",
@@ -1561,37 +1500,11 @@ def main() -> int:
          bitpack.encode(longest, mode="d1").to(dev))])
     t_phase = phase_done(3, t_phase)
 
-    rows = []
-    timers = {"unpack_blocks": time_k1, "gallop_tiles": time_k2,
-              "packed_gallop_batched": time_k3,
-              "decoded_fold_batched": time_k4,
-              "packed_fold_batched": time_k5,
-              "pack_blocks_padded": time_k6, "unpack_svb_blocks": time_k7}
-    for rec in recorders:
-        if rec.best is None:
-            raise AssertionError(f"{rec.name} was never called on the main "
-                                 f"path")
-        res = timers[rec.name](*rec.best)
-        rows.append((rec.name, res))
-        if rec.name == "gallop_tiles":
-            rows.append(("gallop_tiles_batched",
-                         time_k2(*rec.best, batched=8)))
-    kernels = []
-    for kname, res in rows:
-        if res["max_abs_err"] != 0:
-            raise AssertionError(f"{kname}: kernel differs from plain at the "
-                                 f"main-path shape")
-        notes = {k: res.pop(k) for k in ("shape", "window_bytes") if k in res}
-        log(f"{kname} at {notes.pop('shape')}: " + ", ".join(
-            f"{k} {v}" for k, v in {**res, **notes}.items()))
-        source, replaces = REPLACES[kname]
-        kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": main_path["launches"][kname], **res})
+    kernels = time_kernels(recorders, main_path["launches"], save_dir)
     t_phase = phase_done(4, t_phase)
 
     # free the index and its recorded operands before the LM
-    del recorders, rows, main_path, corpus, truth, longest
+    del recorders, main_path, corpus, truth, longest
     gc.collect()
     torch.cuda.empty_cache()
     lm_path = serve_full_width(dev)

@@ -216,3 +216,52 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# the lean launch path (K1 and K2's wrappers)
+# --------------------------------------------------------------------------
+
+def kernel_device(*tensors: torch.Tensor) -> int:
+    """``kernel_path`` for a lean launch: the CUDA device index the kernel
+    runs on (so the caller probes once and passes it on), or -1 for CPU
+    tensors, where the plain version runs.  Raises as ``kernel_path`` does:
+    tensors on different devices, another device type, a card below
+    sm_90."""
+    first = tensors[0]
+    if not first.is_cuda:
+        kernel_path(*tensors)     # raises on mixed devices, other types
+        return -1
+    index = first.get_device()
+    for t in tensors[1:]:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"tensors on different devices: {first.device} "
+                             f"and {t.device}")
+    cap = _capability(index)
+    if cap < (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a; cuda:{index} "
+                           f"has compute capability {cap[0]}.{cap[1]}")
+    return index
+
+
+# The current device and the current stream's handle on a device, read
+# without torch.cuda's Python wrappers (no Stream object is built; CUDA is
+# initialised, since the caller holds a CUDA tensor).
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or \
+    torch.cuda.current_device
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch(name: str, entry: str, index: int, *args) -> None:
+    """Call C entry ``entry`` with ``args`` and the current stream of CUDA
+    device ``index``, switching the current device only where it is another
+    one; raise if the launch failed, else count one launch of ``name``."""
+    fn = _fns.get(entry) or function(entry)
+    if _current_device() == index:
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
+    check(err, name)
+    count(name)

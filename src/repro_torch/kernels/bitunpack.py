@@ -11,7 +11,9 @@ The Hopper kernel reads the flat (T, 128) words through per-block row
 offsets, so a list is decoded in place: the reference's gather into
 (K, 32, 128) padded blocks (``ops.pad_packed``) has no counterpart.  It
 takes ``block_rows`` at run time (32 for ``bp-*``, 8 for ``bp8-*`` and the
-short lists of ``bp-*``).
+short lists of ``bp-*``).  One warp decodes one block, ``WARPS`` blocks a
+CTA (``csrc/unpack_warp.cuh``); the wrapper takes the lean launch path
+(``_build.kernel_device`` / ``_build.launch``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch.kernels import _build
 
 ROWS = 32
 LANES = 128
+WARPS = 4            # blocks a CTA: csrc/unpack_warp.cuh's kUnpackWarps
 SENTINEL = 2**31 - 1
 
 
@@ -44,7 +47,8 @@ def unpack_blocks(words, offsets, widths, seeds, mode: str = "d1",
     version; CUDA tensors launch the kernel."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown delta mode {mode!r}")
-    if not _build.kernel_path(words, offsets, widths, seeds):
+    index = _build.kernel_device(words, offsets, widths, seeds)
+    if index < 0:
         return unpack_blocks_plain(words, offsets, widths, seeds, mode,
                                    block_rows)
     _build.require(words, "words", torch.int32, 2)
@@ -58,17 +62,15 @@ def unpack_blocks(words, offsets, widths, seeds, mode: str = "d1",
         raise ValueError("offsets, widths and seeds must have one entry per block")
     if not 1 <= block_rows <= 32:
         raise ValueError(f"block_rows must be in [1, 32], got {block_rows}")
-    out = torch.empty((K, block_rows, LANES), dtype=torch.int32,
-                      device=words.device)
-    if K == 0:
-        return out
-    fn = _build.function("repro_unpack_blocks")
-    with torch.cuda.device(words.device):
-        err = fn(words.data_ptr(), T, offsets.data_ptr(), widths.data_ptr(),
-                 seeds.data_ptr(), K, block_rows, MODE_IDS[mode],
-                 out.data_ptr(), _build.stream_of(words))
-    _build.check(err, "unpack_blocks")
-    _build.count("unpack_blocks")
+    if words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes a lane)")
+    out = words.new_empty((K, block_rows, LANES))
+    if K:
+        _build.launch("unpack_blocks", "repro_unpack_blocks", index,
+                      words.data_ptr(), T, offsets.data_ptr(),
+                      widths.data_ptr(), seeds.data_ptr(), K, block_rows,
+                      MODE_IDS[mode], out.data_ptr())
     return out
 
 

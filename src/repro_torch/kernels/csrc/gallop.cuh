@@ -11,7 +11,13 @@
 //
 // Bound on the card: latency of the dependent loads (log2 N in a chain per
 // thread); by bytes it needs only r, the output and the touched lines of f.
-// Staging the top levels of the search in shared memory is later work.
+// The engine's candidate buffers are compacted (core/intersect.py::compact
+// packs the survivors to the front of a SENTINEL-filled buffer that keeps
+// its length), so most warps of a main-path call hold SENTINEL only.  Such a
+// warp writes false and leaves before the first round (__all_sync): exact,
+// because a SENTINEL lane is never a member, and it leaves the card's
+// threads to the valid prefix.  The first rounds probe the same few entries
+// of f in every warp and hit L1, so f is not staged in shared memory.
 #pragma once
 
 #include <cstdint>
@@ -40,10 +46,15 @@ gallop_kernel(const int32_t* __restrict__ r, int M,
               const int32_t* __restrict__ f, int N, int rounds,
               bool* __restrict__ out) {
   const int i = blockIdx.x * kGallopThreads + threadIdx.x;
-  if (i >= M) return;
   const size_t row_r = static_cast<size_t>(blockIdx.y) * M;
   const size_t row_f = static_cast<size_t>(blockIdx.y) * N;
-  out[row_r + i] = gallop_member(f + row_f, N, rounds, r[row_r + i]);
+  const int32_t x = i < M ? __ldg(r + row_r + i) : kSentinel;
+  // every lane of the warp is here (256 threads a CTA, no exit above)
+  if (__all_sync(0xFFFFFFFFu, x == kSentinel)) {
+    if (i < M) out[row_r + i] = false;
+    return;
+  }
+  if (i < M) out[row_r + i] = gallop_member(f + row_f, N, rounds, x);
 }
 
 // ceil(log2 n) for n >= 1

@@ -1,0 +1,225 @@
+// Warp-per-block integrated unpack + prefix sum (paper Algorithm 1), K1's
+// Hopper design (unpack_blocks.cu); K3 and K5 may take it later in place of
+// common.cuh's CTA-per-block decode_block.
+//
+// Replaces the per-block body of src/repro/kernels/bitunpack.py
+// (make_unpack_kernel).  One warp decodes one block of `rows` x 128 values:
+//   1. Its packed words go on the wire at once: lane t issues one 16-byte
+//      cp.async per word row of the block, columns 4t..4t+3 of that row, into
+//      the warp's slice of shared memory (at most `rows` word rows for widths
+//      0-32; each row's index clamped to [0, T-1] as unpack_lane clamps it).
+//      A lane reads back only the columns it copied, so the wait needs no
+//      barrier.
+//   2. For each row, lane t unpacks lanes 4t..4t+3 with unpack_lane's shift,
+//      mask and spill rules, runs the mode's prefix sum over them (4 local
+//      adds, a 5-step __shfl_up_sync scan of the thread totals, the row total
+//      from lane 31 as the carry), and stores 16 bytes, so each row is one
+//      coalesced 512-byte store.  Rows go in groups of kRowGroup whose
+//      scans are independent, so their shuffle chains overlap and only the
+//      carries run in row order: at small K, where one warp's chain is the
+//      kernel's time, a block costs about 4 scan latencies, not 32.  There
+//      is no __syncthreads: the 32 serial load-and-barrier rounds of the
+//      CTA-per-block decode become one wait.
+// Per mode:
+//   none  the values themselves
+//   dv    four per-lane running sums down the rows
+//   dm    the row plus a carry that grows by lane 127's delta each row
+//   d1    the 128-lane inclusive scan plus the row carry
+//   d2/d4 the same per phase: a thread's four lanes are phases 0,1,0,1 (two
+//         scans) or 0,1,2,3 (four scans), each phase with its own carry
+// Every add is on uint32_t, wrapping mod 2**32 as the reference's uint32
+// cumsums.  A width outside 0-32 (never written by the encoders) reads its
+// words straight from global memory, as unpack_lane does.
+//
+// Bound on the card: device-memory bytes (each packed word read once, each
+// 4-byte value written once).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace repro {
+
+constexpr int kUnpackWarps = 4;   // blocks a CTA; bitunpack.WARPS mirrors it
+constexpr int kRowGroup = 8;      // rows whose scans overlap
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Inclusive warp scans of G independent values (G rows of a group), their
+// shuffles interleaved so that the G chains overlap.
+template <int G>
+__device__ __forceinline__ void warp_scans(uint32_t (&x)[G], int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x[g], off);
+      if (lane >= off) x[g] += y;
+    }
+  }
+}
+
+// Lane 31's value of each of G scans: the rows' totals.
+template <int G>
+__device__ __forceinline__ void row_totals(const uint32_t (&x)[G],
+                                           uint32_t (&tot)[G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) tot[g] = __shfl_sync(0xFFFFFFFFu, x[g], 31);
+}
+
+// Lanes 4t..4t+3 of row r from the staged word rows (widths 0-32).
+__device__ __forceinline__ uint4 unpack4(const uint4* stage, int b, int r,
+                                         int lane) {
+  if (b == 0) return make_uint4(0u, 0u, 0u, 0u);
+  const int start = r * b;
+  const int w = start >> 5;
+  const uint32_t sh = static_cast<uint32_t>(start & 31);
+  const uint4 lo = stage[w * 32 + lane];
+  uint4 v = make_uint4(lo.x >> sh, lo.y >> sh, lo.z >> sh, lo.w >> sh);
+  if (sh + static_cast<uint32_t>(b) > 32u) {   // the value spills: word w + 1
+    const uint4 hi = stage[(w + 1) * 32 + lane];
+    const uint32_t up = (32u - sh) & 31u;
+    v.x |= hi.x << up;
+    v.y |= hi.y << up;
+    v.z |= hi.z << up;
+    v.w |= hi.w << up;
+  }
+  const uint32_t mask = b >= 32 ? 0xFFFFFFFFu : ((1u << b) - 1u);
+  v.x &= mask;
+  v.y &= mask;
+  v.z &= mask;
+  v.w &= mask;
+  return v;
+}
+
+// Decode one block into out[r * 128 + lane]; all 32 lanes of the warp call
+// it.  `stage` is this warp's `rows` x 32 uint4 of shared memory.
+template <int MODE>
+__device__ __forceinline__ void decode_block_warp(
+    const uint32_t* __restrict__ words, int T, long long offset, int b,
+    uint32_t seed, int rows, uint4* stage, uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const bool staged = b >= 0 && b <= 32;
+  if (staged) {
+    const int nw = (rows * b + 31) >> 5;        // word rows the block spans
+    for (int j = 0; j < nw; ++j) {
+      long long w = offset + j;
+      w = w < 0 ? 0 : (w > T - 1 ? T - 1 : w);
+      cp_async16(stage + j * 32 + lane, words + w * kLanes + 4 * lane);
+    }
+    cp_async_wait_all();
+  }
+  uint32_t c0 = seed, c1 = seed, c2 = seed, c3 = seed;
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  // rows past `rows` in the last group unpack as 0 and are not stored
+  for (int r0 = 0; r0 < rows; r0 += kRowGroup) {
+    uint4 t[kRowGroup];
+#pragma unroll
+    for (int g = 0; g < kRowGroup; ++g) {
+      const int r = r0 + g;
+      if (r >= rows) {
+        t[g] = make_uint4(0u, 0u, 0u, 0u);
+      } else if (staged) {
+        t[g] = unpack4(stage, b, r, lane);
+      } else {
+        t[g] = make_uint4(unpack_lane(words, T, offset, b, r, 4 * lane),
+                          unpack_lane(words, T, offset, b, r, 4 * lane + 1),
+                          unpack_lane(words, T, offset, b, r, 4 * lane + 2),
+                          unpack_lane(words, T, offset, b, r, 4 * lane + 3));
+      }
+    }
+    uint4 v[kRowGroup];
+    if constexpr (MODE == kNone) {
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) v[g] = t[g];
+    } else if constexpr (MODE == kDV) {
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        c0 += t[g].x; c1 += t[g].y; c2 += t[g].z; c3 += t[g].w;
+        v[g] = make_uint4(c0, c1, c2, c3);
+      }
+    } else if constexpr (MODE == kDM) {
+      uint32_t last[kRowGroup];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g)   // lane 127's delta
+        last[g] = __shfl_sync(0xFFFFFFFFu, t[g].w, 31);
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        v[g] = make_uint4(t[g].x + c0, t[g].y + c0, t[g].z + c0, t[g].w + c0);
+        c0 += last[g];
+      }
+    } else if constexpr (MODE == kD1) {
+      uint32_t x[kRowGroup], tot[kRowGroup];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        t[g].y += t[g].x;                     // the thread's 4 local sums
+        t[g].z += t[g].y;
+        t[g].w += t[g].z;
+        x[g] = t[g].w;
+      }
+      warp_scans(x, lane);
+      row_totals(x, tot);
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        const uint32_t before = c0 + (x[g] - t[g].w);
+        v[g] = make_uint4(before + t[g].x, before + t[g].y, before + t[g].z,
+                          before + t[g].w);
+        c0 += tot[g];
+      }
+    } else if constexpr (MODE == kD2) {
+      // phase 0: lanes 4t, 4t+2; phase 1: lanes 4t+1, 4t+3
+      uint32_t xa[kRowGroup], xe[kRowGroup], ta[kRowGroup], te[kRowGroup];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        t[g].z += t[g].x;
+        t[g].w += t[g].y;
+        xa[g] = t[g].z;
+        xe[g] = t[g].w;
+      }
+      warp_scans(xa, lane);
+      warp_scans(xe, lane);
+      row_totals(xa, ta);
+      row_totals(xe, te);
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        const uint32_t ba = c0 + (xa[g] - t[g].z), be = c1 + (xe[g] - t[g].w);
+        v[g] = make_uint4(ba + t[g].x, be + t[g].y, ba + t[g].z, be + t[g].w);
+        c0 += ta[g];
+        c1 += te[g];
+      }
+    } else {  // kD4: each of the four lanes is its own phase
+      uint32_t x0[kRowGroup], x1[kRowGroup], x2[kRowGroup], x3[kRowGroup];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        x0[g] = t[g].x; x1[g] = t[g].y; x2[g] = t[g].z; x3[g] = t[g].w;
+      }
+      warp_scans(x0, lane);
+      warp_scans(x1, lane);
+      warp_scans(x2, lane);
+      warp_scans(x3, lane);
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        v[g] = make_uint4(c0 + x0[g], c1 + x1[g], c2 + x2[g], c3 + x3[g]);
+        c0 += __shfl_sync(0xFFFFFFFFu, x0[g], 31);
+        c1 += __shfl_sync(0xFFFFFFFFu, x1[g], 31);
+        c2 += __shfl_sync(0xFFFFFFFFu, x2[g], 31);
+        c3 += __shfl_sync(0xFFFFFFFFu, x3[g], 31);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kRowGroup; ++g)
+      if (r0 + g < rows) out4[(r0 + g) * 32 + lane] = v[g];
+  }
+}
+
+}  // namespace repro

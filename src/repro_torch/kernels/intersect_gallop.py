@@ -8,7 +8,9 @@ Port of ``src/repro/kernels/intersect_gallop.py``:
       ``csrc/gallop.cuh``, library ``csrc/gallop_tiles.cu``.  One thread per
       candidate runs ⌈log2 N⌉ branchless lower-bound rounds over ``f`` in
       global memory, so there is no VMEM-sized cap on N and N need not be a
-      power of two.
+      power of two; a warp of SENTINEL candidates writes false and leaves
+      before the first round.  The two wrappers take the lean launch path
+      (``_build.kernel_device`` / ``_build.launch``).
   packed_gallop_batched  ← Pallas ``packed_gallop_batched`` (body
       ``make_packed_gallop_kernel`` with ``bitunpack.decode_candidates``);
       CUDA in ``csrc/packed_gallop.cu``: one launch decodes the candidate
@@ -32,38 +34,43 @@ LANES = 128
 SENTINEL = 2**31 - 1
 
 
-def _gallop_cuda(r, f, name: str) -> torch.Tensor:
-    """Shared launch of the gallop kernel for r (B, M) and f (B, N)."""
-    _build.require(r, "r", torch.int32, 2)
-    _build.require(f, "f", torch.int32, 2)
-    B, M = r.shape
-    if f.shape[0] != B or f.shape[1] < 1:
-        raise ValueError(f"f must be (B={B}, N ≥ 1), got {tuple(f.shape)}")
-    out = torch.empty((B, M), dtype=torch.bool, device=r.device)
-    if B == 0 or M == 0:
-        return out
-    fn = _build.function("repro_gallop_tiles")
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), B, M, f.data_ptr(), f.shape[1], out.data_ptr(),
-                 _build.stream_of(r))
-    _build.check(err, name)
-    _build.count(name)
+def _gallop_launch(r, f, B: int, M: int, N: int, index: int,
+                   name: str) -> torch.Tensor:
+    """K2 on checked r (B, M) and f (B, N) on CUDA device ``index``: the
+    (B, M) bool mask (r's shape)."""
+    if N < 1:
+        raise ValueError(f"f must hold N ≥ 1 entries a row, got {N}")
+    out = torch.empty_like(r, dtype=torch.bool)
+    if B and M:
+        _build.launch(name, "repro_gallop_tiles", index, r.data_ptr(), B, M,
+                      f.data_ptr(), N, out.data_ptr())
     return out
 
 
 def gallop_tiles(r: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """r (M,) SENTINEL-padded int32; f (N,) sorted SENTINEL-padded int32,
     N ≥ 1.  Returns the (M,) bool match mask."""
-    if not _build.kernel_path(r, f):
+    index = _build.kernel_device(r, f)
+    if index < 0:
         return its.intersect_gallop(r, f)
-    return _gallop_cuda(r[None], f[None], "gallop_tiles")[0]
+    _build.require(r, "r", torch.int32, 1)
+    _build.require(f, "f", torch.int32, 1)
+    return _gallop_launch(r, f, 1, r.shape[0], f.shape[0], index,
+                          "gallop_tiles")
 
 
 def gallop_tiles_batched(r: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """r (B, M), f (B, N): ``gallop_tiles`` per row → (B, M) bool."""
-    if not _build.kernel_path(r, f):
+    index = _build.kernel_device(r, f)
+    if index < 0:
         return its.intersect_gallop(r, f)
-    return _gallop_cuda(r, f, "gallop_tiles_batched")
+    _build.require(r, "r", torch.int32, 2)
+    _build.require(f, "f", torch.int32, 2)
+    B, M = r.shape
+    if f.shape[0] != B:
+        raise ValueError(f"f must be (B={B}, N ≥ 1), got {tuple(f.shape)}")
+    return _gallop_launch(r, f, B, M, f.shape[1], index,
+                          "gallop_tiles_batched")
 
 
 def packed_gallop_batched(r, words, widths, offsets, maxes, blk_ids,

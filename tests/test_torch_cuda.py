@@ -16,6 +16,7 @@ from repro_torch.core import fastpfor as tf
 from repro_torch.core import intersect as its
 from repro_torch.index import source
 from repro_torch.kernels import bitunpack as tkb
+from repro_torch.kernels import intersect_gallop as tkg
 from repro_torch.kernels import ops
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
@@ -161,6 +162,111 @@ def test_wrappers_reject_bad_operands(cuda):
         ops.intersect_gallop(r64, f)
     with pytest.raises(ValueError):
         ops.intersect_gallop(f, torch.zeros(128, dtype=torch.int32))
+    # the lean launch path (K1, K2a, K2b) raises on dtype, rank, contiguity,
+    # mixed devices, an empty f and (K1) words off a 16-byte boundary, and
+    # launches nothing
+    before = ops.launches()
+    f2 = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    for bad in [(f2, f), (f, f2), (f2[:, ::2], f2[:, ::2]),
+                (f[::2], f), (f, f[:0]), (f, f.cpu()), (f.cpu(), f)]:
+        with pytest.raises(ValueError):
+            tkg.gallop_tiles(*bad)
+    for bad in [(f2.long(), f2), (f2, f2[:1]), (f2.t(), f2), (f2, f2.cpu()),
+                (f2, f2[:, :0])]:
+        with pytest.raises(ValueError):
+            tkg.gallop_tiles_batched(*bad)
+    args = [_t(a, cuda) for a in width_sweep(seed=2, rows=8)]
+    words, offsets, widths, seeds = args
+    for i, bad in [(0, words.long()), (0, words[:, ::2]), (0, words[None]),
+                   (1, offsets.cpu()), (2, widths[:5]), (3, seeds.long()),
+                   (0, torch.zeros(words.numel() + 1, dtype=torch.int32,
+                                   device=cuda)[1:].view(-1, 128))]:
+        with pytest.raises(ValueError):
+            tkb.unpack_blocks(*args[:i], bad, *args[i + 1:], "d1", 8)
+    with pytest.raises(ValueError):
+        tkb.unpack_blocks(*args, "d1", 33)
+    assert ops.launches() == before
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_unpack_block_counts_match_plain(cuda, mode):
+    """K = 1, 3, WARPS ± 1 blocks of random widths (a CTA with idle warps,
+    K past one CTA) and word reads clamped to [0, T − 1]."""
+    rng = np.random.default_rng(MODES.index(mode))
+    W = tkb.WARPS
+    for rows in (32, 8):
+        words, _, _, _ = width_sweep(seed=rows, rows=rows)
+        T = words.shape[0]
+        cases = [(words, np.array([T - 3, T - 1, -2, T - 20, 0], np.int32),
+                  np.array([17, 32, 9, 31, 0], np.int32),
+                  np.array([7, 0xFFFFFFF0, 1, 2**31, 5], np.uint32))]
+        for K in (1, 3, W - 1, W + 1):
+            ids = rng.integers(0, 33, K)
+            _, offs, widths, seeds = width_sweep(seed=rows, rows=rows)
+            cases.append((words, offs[ids], widths[ids], seeds[ids]))
+        for case in cases:
+            args = [_t(a) for a in case]
+            want = tkb.unpack_blocks_plain(*args, mode, rows)
+            got = tkb.unpack_blocks(*(a.to(cuda) for a in args), mode, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("M,N,kind", [(1 << 16, 1 << 21, "compact"),
+                                      (777, 1000, "holes"),
+                                      (1 << 15, 3001, "unsorted"),
+                                      (300, 1, "mixed"),
+                                      (130, 1, "all_sentinel"),
+                                      (100003, 1 << 20, "holes"),
+                                      (1000, 4096, "tail_one")])
+def test_gallop_sentinel_warps_match_plain(cuda, M, N, kind):
+    """K2a/K2b where warps leave early: whole SENTINEL warps after a valid
+    prefix (as ``its.compact`` leaves them), SENTINEL lanes between valid
+    ones, unsorted r, one valid lane past five whole warps, M not a multiple
+    of 32, N = 1 and N not a power of two."""
+    rng = np.random.default_rng(M + N)
+    r = np.full((2, M), SENT, np.int32)
+    f = np.full((2, N), SENT, np.int32)
+    for b in range(2):
+        fv = np.sort(rng.choice(1 << 24, size=max(N // 2, 1), replace=False))
+        f[b, : fv.size] = fv
+        if kind == "all_sentinel":
+            continue
+        if kind == "tail_one":
+            r[b, :161] = fv[:161]
+            continue
+        rv = np.union1d(rng.choice(fv, size=min(fv.size, M // 4)),
+                        rng.choice(1 << 24, size=M // 4, replace=False))
+        if kind == "holes":
+            r[b, np.sort(rng.choice(M, rv.size, replace=False))] = rv
+        elif kind == "unsorted":
+            r[b, : rv.size] = rng.permutation(rv)
+        else:
+            r[b, : rv.size] = rv
+    want = its.intersect_gallop(_t(r), _t(f))
+    got = ops.intersect_gallop_batch(_t(r, cuda), _t(f, cuda))
+    got1 = ops.intersect_gallop(_t(r[1], cuda), _t(f[1], cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got1.cpu(), want[1])
+    assert bool(want.any()) == (kind != "all_sentinel")
+
+
+def test_packed_gallop_with_sentinel_warps_matches_plain(cuda):
+    """K3's gallop launch where r holds whole SENTINEL warps after its
+    valid prefix (padded to 4096)."""
+    case, rows = packed_case(seed=8, mode="d1", codec="bp", c_pad=32)
+    r = case["r"]
+    case["r"] = np.concatenate(
+        [r, np.full((r.shape[0], 4096 - r.shape[1]), SENT, np.int32)], 1)
+    assert (case["r"].reshape(2, -1, 32) == SENT).all(-1).any(-1).all()
+    cpu = [_t(case[k]) for k in PACKED_ORDER]
+    want = ops.intersect_packed_batch(*cpu, mode="d1", block_rows=rows)
+    got = ops.intersect_packed_batch(*(a.to(cuda) for a in cpu), mode="d1",
+                                     block_rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert want.any()
 
 
 # --------------------------------------------------------------------------
