@@ -14,21 +14,25 @@ Phases, each fatal on failure, each timed:
      clamped word reads × six modes × rows 32/8, K2a/K2b over M 128…2**16
      and N 1…2**24 with whole SENTINEL warps after a valid prefix,
      all-SENTINEL and no-match rows, SENTINEL lanes between valid ones,
-     unsorted r and one valid lane past whole warps, K3 over modes,
-     FastPFOR exceptions, pad ids and C 8…256, K4 over N 1…2**23 with
+     unsorted r and one valid lane past whole warps, K3 over modes
+     none–dv × bp/fastpfor (E = 0 and exceptions), C 8…1024 with pad ids
+     (512 of 1024 at 8-row blocks), a row of pads only and candidates above
+     the last candidate block, one launch a call and one kernel in a
+     profiled call, K4 over N 1…2**23 with
      SENTINEL and padded rows, holes in the incoming mask, inactive slots
      and J = 0, K5 over modes d1–dv × bp/fastpfor (with and without
      exceptions), 32- and 8-row blocks, inactive, empty and single-block
      slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0, K6
      over widths 0–32 × modes at K = 2**12 (and back through K1), K7 over
-     modes × block_rows 1/2/8 × byte lengths 1–4 with pow2 pad blocks,
-     clamped last-word reads, K = 1 … 2**15; K8 (flash attention) at the
+     modes × block_rows 1/2/8/32 × byte lengths 1–4 with pow2 pad blocks,
+     clamped last-word reads, negative and int32-wrapping offsets,
+     K = 1 … 2**15, one launch a call; K8 (flash attention) at the
      shapes of tests/test_torch_cuda.py, float32 within 1e-4 and bf16
      within 0.05 and elementwise within ``flash_attention.bf16_allowance``,
      each call on the route (tc, split or simt) that FLASH_CASES states,
-     by K8's route counter, and every route run; K8's, K1's, K2's and K3's
-     kernels' registers and spills, read by ``cuobjdump`` (fatal if one of
-     them spills);
+     by K8's route counter, and every route run; K8's, K1's, K2's, K3's
+     and K7's kernels' registers and spills, read by ``cuobjdump`` (fatal
+     if one of them spills);
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built (two parts) on the
      card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
@@ -54,11 +58,11 @@ Phases, each fatal on failure, each timed:
      function (back to back and in a graph; for K2 also the four-op chain
      searchsorted, gather, ==, != SENTINEL, and the valid lanes of r and
      f), and its bound (bytes over 3.35 TB/s, or 32-bit operations over 67
-     T/s, the larger); K1 also at the largest call of its most frequent
-     size, with its calls by size (K to the next power of two); with
-     ``--save-operands DIR`` the K1, K2 and K3 operands go to
-     DIR/operands.pt, for ``kernel_times.py`` to time another tree's
-     kernels on; then the index is freed;
+     T/s, the larger); K1, K3 and K7 also at the largest call of their
+     most frequent size, with their calls by size (K, or C for K3, to the
+     next power of two); with ``--save-operands DIR`` the K1, K2, K3 and K7
+     operands go to DIR/operands.pt, for ``kernel_times.py`` to time another
+     tree's kernels on; then the index is freed;
   5. the served LM at full width: gemma-7b as registered (28 layers,
      d_model 3072, 16 heads of 256, d_ff 24576, vocab 256000; 8,537,677,824
      float32 parameters from a seeded generator on the card, bf16 compute)
@@ -74,8 +78,9 @@ Phases, each fatal on failure, each timed:
      on a phi3-medium-14b-wide GQA shape (tc), each within 0.05 and, against
      the plain version, within ``bf16_allowance``; then K8 timed at those
      three shapes beside the SIMT route's kernel at the same shape, its
-     plain version, ``scaled_dot_product_attention`` (timed only, also
-     under its FlashAttention-2 backend alone) and its bound
+     plain version, ``scaled_dot_product_attention`` (timed only, back to
+     back and in a CUDA graph, also under its FlashAttention-2 backend
+     alone), its host time a call at one 64-token tile, and its bound
      (bytes over 3.35 TB/s, or FLOPs over 989 TFLOP/s for bf16 operands
      and 67 TFLOP/s for float32).
 The last two lines are the kernels' JSON record and the device line.  It
@@ -101,7 +106,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    OPS_PER_S, TIMERS, bound, cuda_ms, graph_ms, max_abs_err, time_k2)
+    OPS_PER_S, TIMERS, bound, cuda_ms, graph_ms, host_us, time_k2)
 
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores (data sheet)
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
@@ -334,9 +339,12 @@ def check_k2(dev) -> None:
         f"multiple of 32, N = 1 and N not a power of two")
 
 
-def packed_operands(encs, rs, c_pad, dev):
+def packed_operands(encs, rs, c_pad, dev, *, real=None, pad_row=False):
     """K3 operands (in wrapper order) for rows of encoded lists and their
-    candidates; each row's candidate ids are cut to c_pad - 1 and padded."""
+    candidates: each row's candidate ids are its candidates' blocks cut to
+    ``real`` (c_pad - 1 by default) and padded, so candidates above the last
+    candidate block stay in r (the kernel writes them false); ``pad_row``
+    adds a row whose slots are all pads."""
     from repro_torch.core import bitpack, intersect as its
     from repro_torch.index import source
     k_pad = max(bitpack.self_pads(e)[0] for e in encs)
@@ -346,19 +354,36 @@ def packed_operands(encs, rs, c_pad, dev):
                             "exc_pos", "exc_add")}
     # at least one whole SENTINEL warp after every row's valid prefix
     m = its.pow2_bucket(max(len(r) for r in rs) + 32)
-    for enc, r in zip(encs, rs):
+    rows = list(zip(encs, rs)) + ([(encs[0], rs[0])] if pad_row else [])
+    for i, (enc, r) in enumerate(rows):
         lay = bitpack.layout_np(enc, k_pad, t_pad, e_pad)
         blk = bitpack.candidate_block_ids(lay.maxes[: enc.num_blocks], r)
-        blk = blk[: c_pad - 1]
-        cols["r"].append(its.pad_to(r[r <= lay.maxes[blk[-1]]], m))
-        cols["blk"].append(source.pad_block_ids(blk, c_pad, k_pad))
+        blk = blk[: (c_pad - 1 if real is None else real)]
+        if (r > lay.maxes[blk[-1]]).sum() == 0:
+            raise AssertionError("K3 check: no candidate above the last "
+                                 "candidate block")
+        cols["r"].append(its.pad_to(r, m))
+        cols["blk"].append(source.pad_block_ids(
+            blk if i < len(encs) else blk[:0], c_pad, k_pad))
         for k in ("words", "widths", "offsets", "maxes", "exc_pos", "exc_add"):
             cols[k].append(getattr(lay, k))
     return [_t(np.stack(v), dev) for v in cols.values()]
 
 
+def kernel_names(fn) -> set:
+    """The names of the CUDA kernels ``fn()`` launches, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def check_k3(dev) -> dict:
-    """K3 vs plain; returns the encoded lists and candidates for K5's check."""
+    """K3 vs plain, one launch a call, one kernel in a profiled call;
+    returns the encoded lists and candidates for K5's check."""
     from repro_torch.core import bitpack, fastpfor, intersect as its
     from repro_torch.kernels import ops
     rng = np.random.default_rng(3)
@@ -370,30 +395,60 @@ def check_k3(dev) -> dict:
     sparse = np.union1d(rng.choice(f[:40000], 300), rng.integers(0, 40000, 50))
     n_checks = 0
     encs = {}
-    for mode in ("d1", "d2", "d4", "dm", "dv"):
+
+    def check(what, args, mode, rows):
+        nonlocal n_checks
+        if not bool((args[0].reshape(args[0].shape[0], -1, 32) == SENT)
+                    .all(-1).any(-1).all()):
+            raise AssertionError("K3 check: a row without whole SENTINEL "
+                                 "warps")
+        want = its.intersect_packed_batch(*args, mode=mode, block_rows=rows)
+        before = ops.launches()["packed_gallop_batched"]
+        got = ops.intersect_packed_batch(*args, mode=mode, block_rows=rows)
+        expect_equal(f"K3 {what}", got, want)
+        if ops.launches()["packed_gallop_batched"] != before + 1:
+            raise AssertionError(f"K3 {what}: not one launch a call")
+        if not bool(want[:2].any()) or bool(want[2:].any()):
+            raise AssertionError(f"K3 {what}: no matches, or a match in the "
+                                 f"row of pads")
+        n_checks += 1
+
+    for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
         for codec in ("bp", "fastpfor"):
-            enc = encs[(codec, mode)] = (
-                fastpfor.encode(f, mode=mode) if codec == "fastpfor"
-                else bitpack.encode(f, mode=mode))
+            enc = (fastpfor.encode(f, mode=mode) if codec == "fastpfor"
+                   else bitpack.encode(f, mode=mode))
+            if mode != "none":
+                encs[(codec, mode)] = enc
             for c_pad, r in ((8, sparse), (256, dense)):
-                args = packed_operands([enc, enc], [r, r[::2]], c_pad, dev)
-                if not bool((args[0].reshape(2, -1, 32) == SENT).all(-1)
-                            .any(-1).all()):
-                    raise AssertionError("K3 check: a row without whole "
-                                         "SENTINEL warps")
-                want = its.intersect_packed_batch(*args, mode=mode,
-                                                  block_rows=enc.block_rows)
-                got = ops.intersect_packed_batch(*args, mode=mode,
-                                                 block_rows=enc.block_rows)
-                expect_equal(f"K3 {codec}-{mode} C={c_pad}", got, want)
-                if not bool(want.any()):
-                    raise AssertionError(f"K3 {codec}-{mode}: no matches")
-                n_checks += 1
-            if codec == "fastpfor" and enc.exc_pos.shape[0] == 0:
+                args = packed_operands([enc, enc], [r, r[::2]], c_pad, dev,
+                                       pad_row=True)
+                check(f"{codec}-{mode} C={c_pad}", args, mode, enc.block_rows)
+            if (codec == "fastpfor" and mode != "none"
+                    and enc.exc_pos.shape[0] == 0):
                 raise AssertionError("K3 check has no FastPFOR exceptions")
-    log(f"K3 equal to plain on {n_checks} cases: modes d1/d2/d4/dm/dv, bp and "
-        f"fastpfor (with exceptions), pad ids, C = 8 and 256, every row's "
-        f"valid prefix followed by whole SENTINEL warps")
+    # the main path's C = 1024 with half the slots pads, 8-row blocks
+    for codec in ("bp", "fastpfor"):
+        enc = (fastpfor.encode(f, mode="d1", block_rows=8)
+               if codec == "fastpfor" else
+               bitpack.encode(f, mode="d1", block_rows=8))
+        args = packed_operands([enc, enc], [dense, dense[1::3]], 1024, dev,
+                               real=512, pad_row=True)
+        check(f"{codec}-d1 C=1024, 512 pad slots, rows=8", args, "d1", 8)
+        if codec == "fastpfor":
+            names = kernel_names(lambda: ops.intersect_packed_batch(
+                *args, mode="d1", block_rows=8))
+            if (not any("packed_gallop_kernel" in k for k in names)
+                    or any("packed_decode" in k or ("gallop_kernel" in k
+                           and "packed_gallop_kernel" not in k)
+                           for k in names)):
+                raise AssertionError(f"K3 launched other kernels than its "
+                                     f"own in a profiled call: {names}")
+    log(f"K3 equal to plain on {n_checks} cases, one launch a call: modes "
+        f"none/d1/d2/d4/dm/dv, bp and fastpfor (with exceptions), pad ids, "
+        f"C = 8, 256 and 1024 (512 pads, rows 8), a row of pads only, "
+        f"candidates above the last candidate block, every row's valid "
+        f"prefix followed by whole SENTINEL warps; a profiled call runs "
+        f"packed_gallop_kernel alone")
     return {"encs": encs, "f": f, "dense": dense, "sparse": sparse}
 
 
@@ -562,45 +617,54 @@ def check_k5(dev, k3: dict) -> None:
 
 def svb_operands(rng, K: int, rows: int, DW: int, dev) -> list:
     """Random K7 operands: every 2-bit code (byte lengths 1–4), data offsets
-    at 0, inside and at the last bytes of the stream (clamped reads),
-    random seeds."""
+    at 0, inside and at the last bytes of the stream (clamped reads), one
+    negative and one that wraps int32, random seeds."""
     ctrl = rng.integers(0, 1 << 32, (K, 8 * rows), dtype=np.uint64)
     data = rng.integers(0, 1 << 32, DW, dtype=np.uint64)
     doffs = rng.integers(0, 4 * DW, K)
     doffs[::3] = 4 * DW - 1 - rng.integers(0, 8, doffs[::3].size)
     doffs[0] = 0
+    if K > 2:
+        doffs[1:3] = (-7, 2**31 - 40)
     seeds = rng.integers(0, 1 << 32, K, dtype=np.uint64)
     return [_t(ctrl.astype(np.uint32), dev), _t(data.astype(np.uint32), dev),
             _t(doffs.astype(np.int32), dev), _t(seeds.astype(np.uint32), dev)]
 
 
 def check_k7(dev) -> None:
-    """K7 vs plain over modes × block_rows {1, 2, 8}: random operands (byte
-    lengths 1–4, clamped last-word reads) at K = 1, 3001 and 2**15, and
+    """K7 vs plain, one launch a call, over modes × block_rows {1, 2, 8,
+    32}: random operands (byte lengths 1–4, clamped last-word reads,
+    negative and wrapping offsets) at K = 1, 3001 and (rows ≤ 8) 2**15, and
     encoded lists (gaps of 1–4 bytes) through their pow2-padded operands,
     pad blocks included."""
     from repro_torch.core import streamvbyte
     from repro_torch.kernels import ops, svb_decode
     rng = np.random.default_rng(7)
     n_checks = 0
-    for rows in (1, 2, 8):
-        cases = [svb_operands(rng, K, rows, DW, dev)
-                 for K, DW in ((1, 1), (1, 33), (3001, 3001 * rows * 40),
-                               (1 << 15, (1 << 15) * rows * 50))]
+    for rows in (1, 2, 8, 32):
+        shapes = [(1, 1), (1, 33), (3001, 3001 * rows * 40 + 3)]
+        if rows <= 8:
+            shapes.append((1 << 15, (1 << 15) * rows * 50))
+        cases = [svb_operands(rng, K, rows, DW, dev) for K, DW in shapes]
+        n_random = len(cases)
         for mode in ("none", "d1", "d2", "d4", "dm", "dv"):
             for n in (1, 120, 5000 * rows + 77):
                 gaps = (2.0 ** rng.uniform(0, 25 if n <= 120 else 18, n))
                 sl = streamvbyte.encode(np.cumsum(gaps.astype(np.int64)),
                                         mode=mode, block_rows=rows).to(dev)
                 cases.append(svb_decode.bucketed_operands(sl))
-            for args in cases[-3:] + cases[:4]:
+            for args in cases[-3:] + cases[:n_random]:
+                want = svb_decode.decode_svb(*args, mode, rows)
+                before = ops.launches()["unpack_svb_blocks"]
                 expect_equal(f"K7 {mode} rows={rows} K={args[0].shape[0]}",
-                             ops.unpack_svb_blocks(*args, mode, rows),
-                             svb_decode.decode_svb(*args, mode, rows))
+                             ops.unpack_svb_blocks(*args, mode, rows), want)
+                if ops.launches()["unpack_svb_blocks"] != before + 1:
+                    raise AssertionError("K7: not one launch a call")
                 n_checks += 1
-    log(f"K7 equal to plain on {n_checks} cases: modes none/d1/d2/d4/dm/dv x "
-        f"block_rows 1/2/8, byte lengths 1-4, pow2 pad blocks, clamped "
-        f"last-word reads, K = 1 ... 2**15")
+    log(f"K7 equal to plain on {n_checks} cases, one launch a call: modes "
+        f"none/d1/d2/d4/dm/dv x block_rows 1/2/8/32, byte lengths 1-4, pow2 "
+        f"pad blocks, clamped last-word reads, negative and wrapping "
+        f"offsets, K = 1 ... 2**15")
 
 
 def check_k6(dev) -> None:
@@ -791,13 +855,12 @@ def k8_resources() -> str:
 
 
 def k1_k2_resources() -> str:
-    """K1's and K2's kernels' registers (``kernel_resources``); K3's
-    library carries K2's kernel too."""
-    return resources_line("K1/K2/K3", [
+    """K1's, K2's, K3's and K7's kernels' registers (``kernel_resources``)."""
+    return resources_line("K1/K2/K3/K7", [
         *kernel_resources("unpack_blocks", {"unpack_blocks_kernel": "K1"}),
         *kernel_resources("gallop_tiles", {"gallop_kernel": "K2"}),
-        *kernel_resources("packed_gallop", {"gallop_kernel": "K3 gallop",
-                                            "packed_decode": "K3 decode"})])
+        *kernel_resources("packed_gallop", {"packed_gallop_kernel": "K3"}),
+        *kernel_resources("svb_decode", {"svb_decode_kernel": "K7"})])
 
 
 # --------------------------------------------------------------------------
@@ -807,14 +870,16 @@ def k1_k2_resources() -> str:
 class Recorder:
     """Wraps a kernel wrapper and keeps the inputs of its largest call on the
     main path, so phase 4 times the kernel at a main-path shape.  With
-    ``bucket`` it also counts the calls by ``bucket(*args)`` and keeps the
-    largest call of each bucket."""
+    ``bucket`` it also counts the calls by ``bucket(*args)`` (a size to the
+    next power of two, named ``by``) and keeps the largest call of each
+    bucket."""
 
-    def __init__(self, module, name, size, bucket=None):
+    def __init__(self, module, name, size, bucket=None, by="K"):
         self.module, self.name, self.size = module, name, size
         self.inner = getattr(module, name)
         self.best, self.best_size = None, -1
         self.bucket, self.counts, self.by_bucket = bucket, {}, {}
+        self.by = by
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
@@ -1128,13 +1193,18 @@ def time_k8(q, k, v, *, causal: bool, kv_len, bk: int) -> dict:
             fa2_ms = cuda_ms(library)
         except RuntimeError:
             fa2_ms = None
+    # the launch path's host time: a call at one tile of queries and keys
+    q1, k1, v1 = (t[:1, :64].contiguous() for t in (q, k, v))
+    kv1 = None if kv_len is None else min(kv_len, 64)
     return {"max_abs_err": max_float_err(kern(), plain()),
             "k8_route": fa._route(q, k, v, causal, kv_len),
             "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+            "host_us": host_us(lambda: fa.flash_attention(
+                q1, k1, v1, causal=causal, kv_len=kv1, bk=bk)),
             "simt_ms": cuda_ms(simt, iters=10),
             "plain_ms": cuda_ms(plain, iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library),
-            "library_fa2_ms": fa2_ms,
+            "library_graph_ms": graph_ms(library), "library_fa2_ms": fa2_ms,
             "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}, "
                      f"causal {causal}, kv_len {kv_len}, {flops} FLOPs, "
                      f"{nbytes} bytes"}
@@ -1339,11 +1409,11 @@ def phase_done(k: int, t0: float) -> float:
 
 def time_kernels(recorders, launches: dict, save_dir=None) -> list:
     """Phase 4: each recorded kernel timed at its largest main-path call
-    (K1 also at the largest call of its most frequent size, with its calls
-    by size), K2b on 8 copies of K2a's row; each must equal its plain
-    version there.  Returns the ``kernels`` records; with ``save_dir`` also
-    saves the K1, K2 and K3 operands."""
-    rows = []
+    (K1, K3 and K7 also at the largest call of their most frequent size,
+    with their calls by size), K2b on 8 copies of K2a's row; each must
+    equal its plain version there.  Returns the ``kernels`` records; with
+    ``save_dir`` also saves the K1, K2, K3 and K7 operands."""
+    rows, saved = [], {}
     for rec in recorders:
         if rec.best is None:
             raise AssertionError(f"{rec.name} was never called on the main "
@@ -1353,23 +1423,26 @@ def time_kernels(recorders, launches: dict, save_dir=None) -> list:
         if rec.name == "gallop_tiles":
             rows.append(("gallop_tiles_batched",
                          time_k2(*rec.best, batched=8)))
-    k1 = recorders[0]
-    bucket, freq_args = k1.most_frequent()
-    freq = TIMERS["unpack_blocks"](*freq_args)
-    if freq["max_abs_err"] != 0:
-        raise AssertionError("unpack_blocks: kernel differs from plain at the "
-                             "most frequent main-path call size")
-    rows[0][1]["k_histogram"] = {str(k): v for k, v in sorted(k1.counts.items())}
-    rows[0][1]["frequent"] = freq
-    log(f"unpack_blocks calls over phase 3 by K (the next power of two): "
-        f"{rows[0][1]['k_histogram']}; most frequent K <= {bucket}, timed at "
-        f"{freq.pop('shape')}: " + ", ".join(f"{k} {v}"
-                                              for k, v in freq.items()))
+        if rec.name in ("unpack_blocks", "gallop_tiles",
+                        "packed_gallop_batched", "unpack_svb_blocks"):
+            saved[rec.name] = (rec.name, *rec.best)
+        if rec.bucket is None:
+            continue
+        bucket, freq_args = rec.most_frequent()
+        freq = TIMERS[rec.name](*freq_args)
+        if freq["max_abs_err"] != 0:
+            raise AssertionError(f"{rec.name}: kernel differs from plain at "
+                                 f"the most frequent main-path call size")
+        key = f"{rec.by.lower()}_histogram"
+        res[key] = {str(k): v for k, v in sorted(rec.counts.items())}
+        res["frequent"] = freq
+        saved[f"{rec.name}@{rec.by}={bucket}"] = (rec.name, *freq_args)
+        log(f"{rec.name} calls over phase 3 by {rec.by} (the next power of "
+            f"two): {res[key]}; most frequent {rec.by} <= {bucket}, timed at "
+            f"{freq.pop('shape')}: " + ", ".join(f"{k} {v}"
+                                                  for k, v in freq.items()))
     if save_dir is not None:
-        save_operands(save_dir, {
-            "unpack_blocks": ("unpack_blocks", *k1.best),
-            f"unpack_blocks@K={bucket}": ("unpack_blocks", *freq_args),
-            **{rec.name: (rec.name, *rec.best) for rec in recorders[1:3]}})
+        save_operands(save_dir, saved)
     kernels = []
     for kname, res in rows:
         if res["max_abs_err"] != 0:
@@ -1402,8 +1475,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                             "CUDA card.")
     p.add_argument("--save-operands", metavar="DIR", default=None,
-                   help="also write the operands phase 4 times K1, K2 and "
-                        "K3 on to DIR/operands.pt")
+                   help="also write the operands phase 4 times K1, K2, K3 "
+                        "and K7 on to DIR/operands.pt")
     save_dir = p.parse_args(argv).save_operands
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -1476,14 +1549,17 @@ def main(argv=None) -> int:
         Recorder(intersect_gallop, "gallop_tiles",
                  lambda r, f: r.shape[0] * max((f.shape[0] - 1).bit_length(), 1)),
         Recorder(intersect_gallop, "packed_gallop_batched",
-                 lambda *a, **k: a[5].shape[1] * a[0].shape[1]),
+                 lambda *a, **k: a[5].shape[1] * a[0].shape[1],
+                 bucket=lambda *a, **k: a[5].shape[1], by="C"),
         Recorder(megakernel, "decoded_fold_batched",
                  lambda r, v, f, a: f.shape[0] * r.numel()
                  * max((f.shape[2] - 1).bit_length(), 1)),
         Recorder(megakernel, "packed_fold_batched",
                  lambda *a, **k: a[6].numel()),
         Recorder(svb_decode, "unpack_svb_blocks",
-                 lambda *a, **k: a[0].numel()),
+                 lambda *a, **k: a[0].numel(),
+                 bucket=lambda *a, **k: 1 << max(a[0].shape[0] - 1, 0)
+                 .bit_length()),
     ]
     torch.cuda.reset_peak_memory_stats()
     main_path = run_main_path(dev, corpus, truth)

@@ -10,8 +10,9 @@ are compacted with ``compact``.
   intersect_tiled   the V1/V3 tile walk (ratio ≤ TILED_MAX_RATIO)
   intersect_packed_candidates / _batch
                     skip-aware partial decode of a compressed long list:
-                    decode only candidate blocks, then gallop (plain version
-                    of the K3 kernel)
+                    decode only candidate blocks, then gallop (the plain
+                    version of K3, whose kernel searches each candidate in
+                    the one block that can hold it)
   intersect_auto    the host-side ratio dispatch
 """
 

@@ -52,10 +52,10 @@ SIGNATURES = {
     # r, B, M, f, N, out, stream
     "repro_gallop_tiles": ("gallop_tiles", [_P, _I, _I, _P, _I, _P, _P]),
     # r, M, words, Tp, widths, offsets, maxes, Kp, blk, C, exc_pos, exc_add,
-    # E, block_rows, mode, B, window, out, stream
+    # E, block_rows, mode, B, out, stream
     "repro_packed_gallop": ("packed_gallop",
                             [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
-                             _I, _I, _I, _I, _P, _P, _P]),
+                             _I, _I, _I, _I, _P, _P]),
     # r, valid, B, M, folds, J, N, active, out, stream
     "repro_decoded_fold": ("decoded_fold",
                            [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P]),
@@ -219,7 +219,7 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 # --------------------------------------------------------------------------
-# the lean launch path (K1 and K2's wrappers)
+# the lean launch path (K1, K2, K3 and K7's wrappers)
 # --------------------------------------------------------------------------
 
 def kernel_device(*tensors: torch.Tensor) -> int:

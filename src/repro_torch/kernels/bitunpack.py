@@ -1,10 +1,11 @@
 """K1: integrated bit-unpack + prefix sum (paper Algorithm 1), and the plain
-candidate-block decode shared with K3.
+candidate-block decode of K3 and K5.
 
 Port of ``src/repro/kernels/bitunpack.py``: ``unpack_blocks`` replaces the
 Pallas kernel ``unpack_blocks`` (``make_unpack_kernel``) with the CUDA
 kernel in ``csrc/unpack_blocks.cu``; ``decode_candidates`` is the plain
-version of the decode stage in ``csrc/packed_gallop.cu`` (the reference's
+version of the candidate-block decode that K3 (``csrc/packed_gallop.cu``)
+and K5 (``csrc/packed_decode.cuh``) run (the reference's
 ``decode_candidates``).
 
 The Hopper kernel reads the flat (T, 128) words through per-block row

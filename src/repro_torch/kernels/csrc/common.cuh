@@ -1,8 +1,9 @@
-// Shared device code of the decode kernels: the width-generic lane unpack,
-// `prefix_row`, one row of the mode's prefix sum (K7, svb_decode.cu, runs it
-// for its byte offsets and its values), and `decode_block`, the per-block
-// integrated unpack + prefix sum (paper Algorithm 1) that K1
-// (unpack_blocks.cu) and K3's decode launch (packed_gallop.cu) both run.
+// Shared device code of the decode kernels: the width-generic lane unpack
+// (`unpack_lane`, which K1's and K3's warp decode in unpack_warp.cuh also
+// runs for widths outside 0-32), `prefix_row`, one row of the mode's prefix
+// sum over a 128-thread CTA, and `decode_block`, the per-block integrated
+// unpack + prefix sum (paper Algorithm 1) that K5's decode launch
+// (packed_decode.cuh, packed_fold.cu) runs.
 //
 // Replaces the per-block body of src/repro/kernels/bitunpack.py
 // (`make_unpack_kernel`, and `decode_candidates` via core.bitpack's

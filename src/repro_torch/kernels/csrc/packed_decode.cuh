@@ -1,20 +1,19 @@
-// The candidate-block decode stage shared by K3 (packed_gallop.cu) and K5
-// (packed_fold.cu): decode only the candidate blocks of each slot's
-// compressed list into a window in device memory.
+// K5's candidate-block decode stage (packed_fold.cu): decode only the
+// candidate blocks of each slot's compressed list into a window in device
+// memory.
 //
-// Replaces the decode half of src/repro/kernels/intersect_gallop.py::
-// make_packed_gallop_kernel and of src/repro/kernels/megakernel.py::
-// make_packed_fold_kernel (both bitunpack.py::decode_candidates).
+// Replaces the decode half of src/repro/kernels/megakernel.py::
+// make_packed_fold_kernel (bitunpack.py::decode_candidates).
 //
 // Grid (C, S), one 128-thread CTA per (candidate c, slot s).  A slot is one
-// row of K3's batch or one (j, b) cell of K5's (Jp, B) fold stack; every
+// (j, b) cell of K5's (Jp, B) fold stack; every
 // operand is laid out slot-major with the strides below.  CTA (c, s) decodes
 // block id = blk[s, c] with decode_block (common.cuh), seeded with
 // maxes[s, id - 1] (0 for id 0), after adding the FastPFOR exceptions whose
 // position falls in that block; ids >= Kp are pad slots and write SENTINEL.
 // The window is (S, C * rows * 128) int32, sorted per slot because
-// candidate ids ascend.  `active` (S,) may be null (K3: every slot decodes);
-// a slot whose flag is false writes nothing, and its consumer never reads it.
+// candidate ids ascend.  `active` (S,) may be null (every slot decodes); a
+// slot whose flag is false writes nothing, and its consumer never reads it.
 //
 // exc_pos is ascending and -1-padded at the end (fastpfor.encode and the
 // layout padding make it so).  CUDA has no scatter with mode="drop", so a

@@ -4,7 +4,7 @@
 // Replaces src/repro/kernels/megakernel.py::packed_fold_batched
 // (pl.pallas_call, body make_packed_fold_kernel).  Two launches on one
 // stream:
-//   (i)  packed_decode_kernel (packed_decode.cuh, shared with K3), grid
+//   (i)  packed_decode_kernel (packed_decode.cuh), grid
 //        (C, Jp * B): every active slot's candidate blocks into a
 //        (Jp, B, C * rows * 128) int32 window; inactive slots are skipped;
 //   (ii) fold_kernel (fold.cuh, shared with K4) over that window, with

@@ -13,9 +13,10 @@ Port of ``src/repro/kernels/intersect_gallop.py``:
       (``_build.kernel_device`` / ``_build.launch``).
   packed_gallop_batched  ← Pallas ``packed_gallop_batched`` (body
       ``make_packed_gallop_kernel`` with ``bitunpack.decode_candidates``);
-      CUDA in ``csrc/packed_gallop.cu``: one launch decodes the candidate
-      blocks into a (B, C·block) scratch window in device memory, a second
-      gallops over it.
+      CUDA in ``csrc/packed_gallop.cu``: one launch, one warp per (row,
+      candidate slot), which decodes its block into shared memory with K1's
+      warp decode and searches there the candidates only that block can
+      hold; pad slots write nothing.  Lean launch path, no scratch.
 
 The plain versions are ``core.intersect.intersect_gallop`` and
 ``core.intersect.intersect_packed_batch``; a wrapper takes them only for CPU
@@ -80,11 +81,22 @@ def packed_gallop_batched(r, words, widths, offsets, maxes, blk_ids,
     words (B, Tp, 128), widths/offsets/maxes (B, Kp), blk_ids (B, C) ascending
     unique ids padded with ids ≥ Kp, exc_pos/exc_add (B, E) FastPFOR patches
     in ascending position order, -1-padded at the end; uint32 arrays as
-    int32 bit patterns.  Returns the (B, M) bool match mask."""
+    int32 bit patterns.  Returns the (B, M) bool match mask.
+
+    The kernel gives slot c (block id ``blk_ids[b, c]``) the candidates x with
+    hi(c−1) < x ≤ hi(c), hi(c) = ``maxes[b, blk_ids[b, c]]``, and searches
+    them in that block alone; the candidates above every candidate block
+    are false.  That equals the reference's gallop over the concatenated
+    window of the candidate blocks because (i) r's valid prefix is strictly
+    increasing, then SENTINEL, and (ii) each block decodes to values in
+    (maxes[id−1], maxes[id]]: the engine's compacted candidate buffers and
+    the encoders' lists of strictly increasing ids give both
+    (``csrc/packed_gallop.cu``)."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown delta mode {mode!r}")
     ops_ = (r, words, widths, offsets, maxes, blk_ids, exc_pos, exc_add)
-    if not _build.kernel_path(*ops_):
+    index = _build.kernel_device(*ops_)
+    if index < 0:
         return its.intersect_packed_batch(*ops_, mode=mode,
                                           block_rows=block_rows)
     _build.require(r, "r", torch.int32, 2)
@@ -104,18 +116,15 @@ def packed_gallop_batched(r, words, widths, offsets, maxes, blk_ids,
         raise ValueError("widths/offsets/maxes and exc_pos/exc_add must agree")
     if not 1 <= block_rows <= 32:
         raise ValueError(f"block_rows must be in [1, 32], got {block_rows}")
-    per = block_rows * LANES
-    out = torch.empty((B, M), dtype=torch.bool, device=r.device)
-    if B == 0 or M == 0:
-        return out
-    window = torch.empty((B, C * per), dtype=torch.int32, device=r.device)
-    fn = _build.function("repro_packed_gallop")
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), M, words.data_ptr(), Tp, widths.data_ptr(),
-                 offsets.data_ptr(), maxes.data_ptr(), Kp, blk_ids.data_ptr(),
-                 C, exc_pos.data_ptr(), exc_add.data_ptr(), E, block_rows,
-                 MODE_IDS[mode], B, window.data_ptr(), out.data_ptr(),
-                 _build.stream_of(r))
-    _build.check(err, "packed_gallop_batched")
-    _build.count("packed_gallop_batched")
+    if words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes a lane)")
+    out = r.new_empty((B, M), dtype=torch.bool)
+    if B and M:
+        _build.launch("packed_gallop_batched", "repro_packed_gallop", index,
+                      r.data_ptr(), M, words.data_ptr(), Tp,
+                      widths.data_ptr(), offsets.data_ptr(), maxes.data_ptr(),
+                      Kp, blk_ids.data_ptr(), C, exc_pos.data_ptr(),
+                      exc_add.data_ptr(), E, block_rows, MODE_IDS[mode], B,
+                      out.data_ptr())
     return out

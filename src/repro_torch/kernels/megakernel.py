@@ -7,7 +7,7 @@ Port of ``src/repro/kernels/megakernel.py``:
       ``make_decoded_fold_kernel``); CUDA kernel ``fold_kernel`` in
       ``csrc/fold.cuh``, library ``csrc/decoded_fold.cu``.
   packed_fold_batched  ← Pallas ``packed_fold_batched`` (body
-      ``make_packed_fold_kernel``); CUDA in ``csrc/packed_fold.cu``: K3's
+      ``make_packed_fold_kernel``); CUDA in ``csrc/packed_fold.cu``: the
       candidate-block decode (``csrc/packed_decode.cuh``) over every active
       (j, b) slot into a window in device memory, then ``fold_kernel`` over
       the window.

@@ -134,8 +134,9 @@ def intersect_gallop_batch(r, f):
 
 def intersect_packed_batch(r, words, widths, offsets, maxes, blk_ids,
                            exc_pos, exc_add, mode: str, block_rows: int):
-    """K3: decode only each row's candidate blocks, then gallop the
-    candidates over them → (B, M) mask."""
+    """K3: decode only each row's candidate blocks and search each candidate
+    in the one of them that can hold it (the plain version gallops over
+    them all) → (B, M) mask."""
     return _intersect_gallop.packed_gallop_batched(
         r, words, widths, offsets, maxes, blk_ids, exc_pos, exc_add,
         mode=mode, block_rows=block_rows)

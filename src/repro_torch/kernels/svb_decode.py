@@ -11,10 +11,13 @@ mode's delta prefix sum from the block's seed.  Pad blocks (code 0, offset 0)
 decode to clamped garbage that callers trim.
 
 The reference keeps the whole data stream resident in VMEM; the Hopper
-kernel reads each value's two words from device memory, so there is no cap
-on DW.  ``decode_bucketed`` pads K and DW to powers of two as the reference
-does, once per list on the payload's device (``bucketed_operands``), so a
-decode on the card is one launch and nothing crosses to the host.
+kernel decodes a block a warp (``WARPS`` blocks a CTA), stages each row
+group's data span in shared memory and reads the rare value outside it from
+device memory, so there is no cap on DW.  The wrapper takes the lean launch
+path (``_build.kernel_device`` / ``_build.launch``).  ``decode_bucketed``
+pads K and DW to powers of two as the reference does, once per list on the
+payload's device (``bucketed_operands``), so a decode on the card is one
+launch and nothing crosses to the host.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from repro_torch.core.deltas import MODE_IDS, U32_MASK, to_i32, to_u32
 from repro_torch.kernels import _build
 
 LANES = 128
+WARPS = 4            # blocks a CTA: csrc/svb_decode.cu's kSvbWarps
 
 
 def _reconstruct(codes, offs, data):
@@ -67,13 +71,14 @@ def decode_svb(ctrl, data, doffs, seeds, mode: str,
 def unpack_svb_blocks(ctrl, data, doffs, seeds, mode: str = "d1",
                       block_rows: int = 1) -> torch.Tensor:
     """K7's wrapper, the reference's operands: ctrl (K, 8·block_rows) int32
-    bit patterns, data (DW ≥ 1,) int32 bit patterns, doffs (K,) int32, seeds
-    (K,) int32 bit patterns.  Returns (K, block_rows, 128) int32 bit
-    patterns.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    bit patterns, data (DW ≥ 1,) int32 bit patterns on a 16-byte boundary,
+    doffs (K,) int32, seeds (K,) int32 bit patterns.  Returns
+    (K, block_rows, 128) int32 bit patterns.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown delta mode {mode!r}")
-    if not _build.kernel_path(ctrl, data, doffs, seeds):
+    index = _build.kernel_device(ctrl, data, doffs, seeds)
+    if index < 0:
         return decode_svb(ctrl, data, doffs, seeds, mode, block_rows)
     _build.require(ctrl, "ctrl", torch.int32, 2)
     _build.require(data, "data", torch.int32, 1)
@@ -88,17 +93,15 @@ def unpack_svb_blocks(ctrl, data, doffs, seeds, mode: str = "d1",
         raise ValueError("data must hold at least one word")
     if doffs.shape[0] != K or seeds.shape[0] != K:
         raise ValueError("ctrl, doffs and seeds must have one entry per block")
-    out = torch.empty((K, block_rows, LANES), dtype=torch.int32,
-                      device=ctrl.device)
-    if K == 0:
-        return out
-    fn = _build.function("repro_svb_decode")
-    with torch.cuda.device(ctrl.device):
-        err = fn(ctrl.data_ptr(), CW, data.data_ptr(), DW, doffs.data_ptr(),
-                 seeds.data_ptr(), K, block_rows, MODE_IDS[mode],
-                 out.data_ptr(), _build.stream_of(ctrl))
-    _build.check(err, "unpack_svb_blocks")
-    _build.count("unpack_svb_blocks")
+    if data.data_ptr() % 16:
+        raise ValueError("data must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes a lane)")
+    out = ctrl.new_empty((K, block_rows, LANES))
+    if K:
+        _build.launch("unpack_svb_blocks", "repro_svb_decode", index,
+                      ctrl.data_ptr(), CW, data.data_ptr(), DW,
+                      doffs.data_ptr(), seeds.data_ptr(), K, block_rows,
+                      MODE_IDS[mode], out.data_ptr())
     return out
 
 

@@ -169,11 +169,14 @@ def time_k2(args, kwargs, batched: int = 0) -> dict:
 
 
 def time_k3(args, kwargs) -> dict:
-    """K3 (candidate decode into a window, then the gallop over it); its
-    gallop launch alone is timed on the same window, made by the plain
-    decode, through K2b (``gallop_ms``, ``gallop_graph_ms``)."""
+    """K3.  Where the tree's K3 is the two-launch design (candidate decode
+    into a window, then K2's gallop over it: its C entry takes the window),
+    as in the trees before the one-launch design, the gallop launch alone is
+    also timed on the same window, made by the plain decode, through K2b
+    (``gallop_ms``, ``gallop_graph_ms``); the one-launch design has no such
+    launch."""
     from repro_torch.core import intersect as its
-    from repro_torch.kernels import bitunpack, intersect_gallop
+    from repro_torch.kernels import _build, bitunpack, intersect_gallop
     r, words, widths, offsets, maxes, blk, exc_pos, exc_add = args
     kern = lambda: intersect_gallop.packed_gallop_batched(*args, **kwargs)
     plain = lambda: its.intersect_packed_batch(*args, **kwargs)
@@ -197,18 +200,20 @@ def time_k3(args, kwargs) -> dict:
               + int(touched.sum()) * 8 + B * M * 5)
     nops = int(real.sum()) * per * 12 + _gallop_work(r, C * per)[1]
     b_ms, b_by = bound(nbytes, nops)
-    window = torch.stack([bitunpack.decode_candidates(
-        words[b], widths[b], offsets[b], maxes[b], blk[b], exc_pos[b],
-        exc_add[b], **kwargs) for b in range(B)])
-    gallop = lambda: intersect_gallop.gallop_tiles_batched(r, window)
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "graph_ms": graph_ms(kern), "host_us": host_us(
-                lambda: intersect_gallop.packed_gallop_batched(*one,
-                                                               **kwargs)),
-            "plain_ms": cuda_ms(plain, iters=10), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "library_graph_ms": None,
-            "gallop_ms": cuda_ms(gallop), "gallop_graph_ms": graph_ms(gallop),
-            "r_valid": int((r != SENT).sum()),
+    out = {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+           "graph_ms": graph_ms(kern), "host_us": host_us(
+               lambda: intersect_gallop.packed_gallop_batched(*one,
+                                                              **kwargs)),
+           "plain_ms": cuda_ms(plain, iters=10), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "library_graph_ms": None}
+    # the two-launch entry took 19 arguments, the window among them
+    if len(_build.SIGNATURES["repro_packed_gallop"][1]) == 19:
+        window = torch.stack([bitunpack.decode_candidates(
+            words[b], widths[b], offsets[b], maxes[b], blk[b], exc_pos[b],
+            exc_add[b], **kwargs) for b in range(B)])
+        gallop = lambda: intersect_gallop.gallop_tiles_batched(r, window)
+        out.update(gallop_ms=cuda_ms(gallop), gallop_graph_ms=graph_ms(gallop))
+    return {**out, "r_valid": int((r != SENT).sum()),
             "shape": f"B={B} M={M} C={C} blocks x {rows} rows, Kp={Kp}, "
                      f"{int(real.sum())} real candidate blocks, mode "
                      f"{kwargs['mode']}"}

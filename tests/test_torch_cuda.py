@@ -269,6 +269,137 @@ def test_packed_gallop_with_sentinel_warps_matches_plain(cuda):
     assert want.any()
 
 
+def fused_case(seed: int, mode: str, codec: str, c_pad: int, rows: int = 32):
+    """K3 operands, 3 rows (also the CPU emulation's,
+    tests/test_torch_packed_svb_hopper.py).  Rows 0 and 1 hold real encodes
+    whose candidate ids are their candidates' blocks cut to c_pad // 2: half
+    the slots are pads and some candidates lie above the last candidate
+    block.  Their r holds members, non-members, some blocks' maxes and the
+    maxes of the blocks before them, values past the list, then at least two
+    whole SENTINEL warps.  Row 2 is row 0 with every slot a pad.  bp layouts
+    have no exception columns (E = 0)."""
+    rng = np.random.default_rng(seed)
+    n = (c_pad + c_pad // 4 + 2) * rows * 128
+    encs, rs = [], []
+    for _ in range(2):
+        gaps = np.where(rng.random(n) < 0.03, rng.integers(1, 1 << 14, n),
+                        rng.integers(1, 40, n))
+        f = np.cumsum(gaps).astype(np.int64)
+        enc = (tf.encode(f, mode=mode, block_rows=rows) if codec == "fastpfor"
+               else tb.encode(f, mode=mode, block_rows=rows))
+        mx = enc.maxes.numpy().view(np.uint32).astype(np.int64)
+        ids = rng.choice(enc.num_blocks, 3 * c_pad // 4 + 1, replace=False)
+        rs.append(np.unique(np.concatenate([
+            rng.choice(f, 2 * c_pad),
+            rng.integers(0, int(f[-1]) + 9999, 2 * c_pad),
+            mx[ids], mx[np.maximum(ids - 1, 0)]])))
+        encs.append(enc)
+    k_pad, t_pad, e_pad = (max(tb.self_pads(e)[i] for e in encs)
+                           for i in range(3))
+    M = its.pow2_bucket(max(len(x) for x in rs) + 64)
+    cols = {k: [] for k in PACKED_ORDER}
+    for b in range(3):
+        enc, rv = encs[b % 2], rs[b % 2]
+        lay = tb.layout_np(enc, k_pad, t_pad, e_pad)
+        blk = tb.candidate_block_ids(lay.maxes[: enc.num_blocks], rv)
+        assert len(blk) > c_pad // 2
+        blk = blk[: c_pad // 2] if b < 2 else blk[:0]
+        cols["r"].append(its.pad_to(rv, M))
+        cols["blk"].append(source.pad_block_ids(blk, c_pad, k_pad))
+        for k in PACKED_ORDER[1:5] + PACKED_ORDER[6:]:
+            cols[k].append(getattr(lay, k))
+    case = {k: np.stack(v) for k, v in cols.items()}
+    mx = case["maxes"][0].astype(np.int64)
+    valid = case["r"][0][case["r"][0] != SENT].astype(np.int64)
+    assert (valid > mx[case["blk"][0, c_pad // 2 - 1]]).any()
+    assert np.isin(mx[case["blk"][0, : c_pad // 2]], valid).any()
+    if codec == "fastpfor" and mode != "none":     # none has no exceptions
+        assert (case["exc_pos"] >= 0).any()
+    return case, rows
+
+
+def _packed_on_card(cuda, case, mode, rows):
+    cpu = [_t(case[k]) for k in PACKED_ORDER]
+    want = ops.intersect_packed_batch(*cpu, mode=mode, block_rows=rows)
+    before = ops.launches()["packed_gallop_batched"]
+    got = ops.intersect_packed_batch(*(a.to(cuda) for a in cpu), mode=mode,
+                                     block_rows=rows)
+    torch.cuda.synchronize()
+    assert ops.launches()["packed_gallop_batched"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert want[:2].any() and not want[:2].all() and not want[2].any()
+    return want
+
+
+@pytest.mark.parametrize("codec", ["bp", "fastpfor"])
+@pytest.mark.parametrize("mode", MODES)
+def test_packed_gallop_fused_matches_plain(cuda, mode, codec):
+    """K3's one launch at C = 8 (half the slots pads): a row of pads only,
+    candidates above the last candidate block and at block maxes, E = 0
+    (bp) and FastPFOR exceptions."""
+    case, rows = fused_case(10 + MODES.index(mode), mode, codec, c_pad=8)
+    want = _packed_on_card(cuda, case, mode, rows)
+    last = case["maxes"][0].astype(np.int64)[case["blk"][0, 3]]
+    above = case["r"][0] != SENT
+    above &= case["r"][0].astype(np.int64) > last
+    assert above.any() and not want[0][above].any()
+
+
+@pytest.mark.parametrize("codec", ["bp", "fastpfor"])
+def test_packed_gallop_fused_1024_slots_matches_plain(cuda, codec):
+    """The main path's C = 1024, 512 slots pads, 8-row blocks."""
+    case, rows = fused_case(5, "d1", codec, c_pad=1024, rows=8)
+    _packed_on_card(cuda, case, "d1", rows)
+
+
+def test_packed_gallop_is_one_kernel_in_a_profile(cuda):
+    """A profiled K3 call runs its own kernel alone: neither K2's
+    gallop_kernel nor the window decode (packed_decode_kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    case, rows = fused_case(6, "d1", "fastpfor", c_pad=64)
+    args = [_t(case[k], cuda) for k in PACKED_ORDER]
+    ops.intersect_packed_batch(*args, mode="d1", block_rows=rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.intersect_packed_batch(*args, mode="d1", block_rows=rows)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert any("packed_gallop_kernel" in k for k in names), names
+    assert not any("packed_decode" in k or ("gallop_kernel" in k and
+                   "packed_gallop_kernel" not in k) for k in names), names
+
+
+def test_packed_gallop_and_svb_lean_path_refuse_bad_operands(cuda):
+    """K3's and K7's wrappers raise on dtype, rank, contiguity, mixed
+    devices, shapes that disagree and operands off a 16-byte boundary, and
+    launch nothing."""
+    from repro_torch.kernels import svb_decode
+    before = ops.launches()
+    case, rows = fused_case(7, "d1", "bp", c_pad=8)
+    args = [_t(case[k], cuda) for k in PACKED_ORDER]
+    odd = torch.zeros(args[1].numel() + 1, dtype=torch.int32, device=cuda)
+    for i, bad in [(0, args[0].long()), (0, args[0][:, ::2]),
+                   (1, args[1][0]), (2, args[2].cpu()), (3, args[3][:, :1]),
+                   (5, args[5][:1]),
+                   (1, odd[1:].view(args[1].shape))]:
+        with pytest.raises(ValueError):
+            tkg.packed_gallop_batched(*args[:i], bad, *args[i + 1:],
+                                      mode="d1", block_rows=rows)
+    with pytest.raises(ValueError):
+        tkg.packed_gallop_batched(*args, mode="d1", block_rows=33)
+    ops_ = [a.to(cuda) for a in svb_operands(3, 5, 2, 300)]
+    data = torch.zeros(301, dtype=torch.int32, device=cuda)
+    for i, bad in [(0, ops_[0].long()), (0, ops_[0][:, :8]),
+                   (1, ops_[1][None]), (1, data[1:]), (2, ops_[2].cpu()),
+                   (3, ops_[3][:4]), (1, ops_[1][:0])]:
+        with pytest.raises(ValueError):
+            svb_decode.unpack_svb_blocks(*ops_[:i], bad, *ops_[i + 1:], "d1",
+                                         2)
+    assert ops.launches() == before
+
+
 # --------------------------------------------------------------------------
 # K4 / K5: the fold kernels
 # --------------------------------------------------------------------------
@@ -419,14 +550,16 @@ def test_batched_engine_on_the_card_matches_the_cpu(cuda):
 
 def svb_operands(seed: int, K: int, rows: int, DW: int):
     """Random K7 operands: every 2-bit code (byte lengths 1–4), data offsets
-    at 0, inside and at the very end of the stream (clamped reads), random
-    seeds."""
+    at 0, inside and at the very end of the stream (clamped reads), one
+    negative and one that wraps int32 (K > 2), random seeds."""
     rng = np.random.default_rng(seed)
     ctrl = rng.integers(0, 1 << 32, (K, 8 * rows), dtype=np.uint64)
     data = rng.integers(0, 1 << 32, DW, dtype=np.uint64)
     doffs = rng.integers(0, 4 * DW, K)
     doffs[:: 3] = 4 * DW - 1 - rng.integers(0, 8, doffs[:: 3].size)
     doffs[0] = 0
+    if K > 2:
+        doffs[1:3] = (-7, 2**31 - 40)
     seeds = rng.integers(0, 1 << 32, K, dtype=np.uint64)
     return [_t(a.astype(np.uint32)) for a in (ctrl, data)] + [
         _t(doffs.astype(np.int32)), _t(seeds.astype(np.uint32))]
@@ -441,15 +574,16 @@ def svb_list(seed: int, n: int, mode: str, rows: int):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("rows", [1, 2, 8])
+@pytest.mark.parametrize("rows", [1, 2, 8, 32])
 def test_svb_decode_matches_plain(cuda, mode, rows):
-    """K7 against its plain version on whole outputs: random operands (every
-    byte length, clamped reads) at K = 1 and K = 3000, and encoded lists
-    through their pow2-padded operands (pad blocks included)."""
+    """K7 against its plain version on whole outputs, one launch a call:
+    random operands (every byte length, clamped reads, a negative and a
+    wrapping offset) at K = 1 and K = 3000, and encoded lists through their
+    pow2-padded operands (pad blocks included)."""
     from repro_torch.core import streamvbyte
     from repro_torch.kernels import svb_decode
     cases = [svb_operands(K + rows, K, rows, DW)
-             for K, DW in ((1, 1), (1, 40), (3000, 3000 * rows * 50))]
+             for K, DW in ((1, 1), (1, 40), (3000, 3000 * rows * 50 + 3))]
     for n in (1, 100, 20000):
         sl = svb_list(n + rows, n, mode, rows)
         cases.append(svb_decode.bucketed_operands(sl))

@@ -38,6 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import bitunpack as tkb
 from repro_torch.kernels import intersect_gallop as tkg
 
+from _warp_emulation import prefix_row, unpack4
+
 pytestmark = pytest.mark.torch_port
 
 MODES = ["none", "d1", "d2", "d4", "dm", "dv"]
@@ -61,31 +63,6 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 # K1: the warp-per-block decode
 # --------------------------------------------------------------------------
 
-def _shfl_up_scan(x: np.ndarray) -> np.ndarray:
-    """The kernel's ``warp_scan``: 5 steps of ``__shfl_up_sync``, lane i
-    adding lane i − off's value where i ≥ off (uint32, wrapping)."""
-    x = x.copy()
-    for off in (1, 2, 4, 8, 16):
-        y = np.zeros_like(x)
-        y[off:] = x[:-off]
-        x = x + y
-    return x
-
-
-def _unpack4(stage, b: int, r: int, cols: np.ndarray) -> np.ndarray:
-    """``unpack4``: the (32, 4) deltas of row r, thread t's four lanes in row
-    t, from the staged word rows (widths 0–32)."""
-    if b == 0:
-        return np.zeros((32, 4), np.uint32)
-    start = r * b
-    w, sh = start >> 5, np.uint32(start & 31)
-    v = stage[w][cols] >> sh
-    if int(sh) + b > 32:                       # the value spills: word w + 1
-        v = v | (stage[w + 1][cols] << np.uint32((32 - int(sh)) & 31))
-    mask = np.uint32(0xFFFFFFFF if b >= 32 else (1 << b) - 1)
-    return (v & mask).reshape(32, 4)
-
-
 def _warp_block(words, T, offset, b, seed, rows, mode, *, carry, shift):
     """One warp's block: (rows, 128) uint32 values."""
     if not 0 <= b <= 32:
@@ -96,31 +73,7 @@ def _warp_block(words, T, offset, b, seed, rows, mode, *, carry, shift):
     c = np.full((32, 4), seed, np.uint32)      # c0..c3 of every thread
     out = np.zeros((rows, 128), np.uint32)
     for r in range(rows):
-        t = _unpack4(stage, b, r, cols)
-        step = np.zeros((32, 4), np.uint32)    # what the carries grow by
-        if mode == "none":
-            v = t
-        elif mode == "dv":
-            step = t
-            v = c + t
-        elif mode == "dm":
-            v = t + c[:, :1]
-            step[:, 0] = t[31, 3]              # lane 127's delta
-        elif mode == "d1":
-            s = np.cumsum(t, axis=1, dtype=np.uint32)
-            x = _shfl_up_scan(s[:, 3])
-            v = (c[:, 0] + (x - s[:, 3]))[:, None] + s
-            step[:, 0] = x[31]
-        elif mode == "d2":                     # phases 0, 1, 0, 1
-            a, e = t[:, 0] + t[:, 2], t[:, 1] + t[:, 3]
-            xa, xe = _shfl_up_scan(a), _shfl_up_scan(e)
-            ba, be = c[:, 0] + (xa - a), c[:, 1] + (xe - e)
-            v = np.stack([ba + t[:, 0], be + t[:, 1], ba + a, be + e], 1)
-            step[:, 0], step[:, 1] = xa[31], xe[31]
-        else:                                  # d4: phases 0, 1, 2, 3
-            x = np.stack([_shfl_up_scan(t[:, p]) for p in range(4)], 1)
-            v = c + x
-            step[:] = x[31]
+        v, step = prefix_row(unpack4(stage, b, r, cols), c, mode)
         if carry:
             c = c + step
         out[r] = v.reshape(128)                # lane t stores 4t..4t+3
