@@ -18,11 +18,15 @@ Phases, each fatal on failure, each timed:
      none–dv × bp/fastpfor (E = 0 and exceptions), C 8…1024 with pad ids
      (512 of 1024 at 8-row blocks), a row of pads only and candidates above
      the last candidate block, one launch a call and one kernel in a
-     profiled call, K4 over N 1…2**23 with
+     call captured in a CUDA graph, K4 over N 1…2**23 with
      SENTINEL and padded rows, holes in the incoming mask, inactive slots
-     and J = 0, K5 over modes d1–dv × bp/fastpfor (with and without
-     exceptions), 32- and 8-row blocks, inactive, empty and single-block
-     slots, family-ceiling pads, windows up to 2**23 ints and Jp = 0, K6
+     and J = 0, K5 over modes none–dv × bp/fastpfor
+     (with and without exceptions), 32- and 8-row blocks, C 8…2048 with
+     half the slots pads and candidates above the last candidate block, an
+     active slot of pad ids only, inactive, empty and single-block slots,
+     family-ceiling pads and Jp = 0, one launch a call and its kernel and
+     the seed copy alone in a captured call; K4, K5, K6 and K8 refusing
+     operands on two devices or of another dtype; K6
      over widths 0–32 × modes at K = 2**12 (and back through K1), K7 over
      modes × block_rows 1/2/8/32 × byte lengths 1–4 with pow2 pad blocks,
      clamped last-word reads, negative and int32-wrapping offsets,
@@ -30,9 +34,9 @@ Phases, each fatal on failure, each timed:
      shapes of tests/test_torch_cuda.py, float32 within 1e-4 and bf16
      within 0.05 and elementwise within ``flash_attention.bf16_allowance``,
      each call on the route (tc, split or simt) that FLASH_CASES states,
-     by K8's route counter, and every route run; K8's, K1's, K2's, K3's
-     and K7's kernels' registers and spills, read by ``cuobjdump`` (fatal
-     if one of them spills);
+     by K8's route counter, and every route run; K8's, K1's, K2's, K3's,
+     K5's and K7's kernels' registers and spills, read by ``cuobjdump``
+     (fatal if one of them spills);
   3. the main path at ClueWeb09 Category B scale: a 50,000,000-document
      corpus with 64 queries (shared vocabulary), built (two parts) on the
      card as fastpfor-d1 and as bp-d1 at B=16 in three regimes — default,
@@ -58,10 +62,11 @@ Phases, each fatal on failure, each timed:
      function (back to back and in a graph; for K2 also the four-op chain
      searchsorted, gather, ==, != SENTINEL, and the valid lanes of r and
      f), and its bound (bytes over 3.35 TB/s, or 32-bit operations over 67
-     T/s, the larger); K1, K3 and K7 also at the largest call of their
-     most frequent size, with their calls by size (K, or C for K3, to the
-     next power of two); with ``--save-operands DIR`` the K1, K2, K3 and K7
-     operands go to DIR/operands.pt, for ``kernel_times.py`` to time another
+     T/s, the larger); K1, K3, K5 and K7 also at the largest call of their
+     most frequent size, with their calls by size (K, or C for K3 and K5,
+     to the next power of two); with
+     ``--save-operands DIR`` every timed kernel's operands, and one tile of
+     K8's, go to DIR/operands.pt, for ``kernel_times.py`` to time another
      tree's kernels on; then the index is freed;
   5. the served LM at full width: gemma-7b as registered (28 layers,
      d_model 3072, 16 heads of 256, d_ff 24576, vocab 256000; 8,537,677,824
@@ -106,7 +111,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.launch.kernel_times import (  # noqa: E402
-    OPS_PER_S, TIMERS, bound, cuda_ms, graph_ms, host_us, time_k2)
+    OPS_PER_S, TIMERS, bound, cuda_ms, graph_ms, graph_ops, host_us,
+    time_k2)
 
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores (data sheet)
 N_DOCS = 50_000_000            # ClueWeb09 Category B (corpus.TABLE2_DOCS)
@@ -370,19 +376,8 @@ def packed_operands(encs, rs, c_pad, dev, *, real=None, pad_row=False):
     return [_t(np.stack(v), dev) for v in cols.values()]
 
 
-def kernel_names(fn) -> set:
-    """The names of the CUDA kernels ``fn()`` launches, by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
-
-
 def check_k3(dev) -> dict:
-    """K3 vs plain, one launch a call, one kernel in a profiled call;
+    """K3 vs plain, one launch a call, one kernel in a captured call;
     returns the encoded lists and candidates for K5's check."""
     from repro_torch.core import bitpack, fastpfor, intersect as its
     from repro_torch.kernels import ops
@@ -435,20 +430,19 @@ def check_k3(dev) -> dict:
                                real=512, pad_row=True)
         check(f"{codec}-d1 C=1024, 512 pad slots, rows=8", args, "d1", 8)
         if codec == "fastpfor":
-            names = kernel_names(lambda: ops.intersect_packed_batch(
+            nodes = graph_ops(lambda: ops.intersect_packed_batch(
                 *args, mode="d1", block_rows=8))
-            if (not any("packed_gallop_kernel" in k for k in names)
-                    or any("packed_decode" in k or ("gallop_kernel" in k
-                           and "packed_gallop_kernel" not in k)
-                           for k in names)):
-                raise AssertionError(f"K3 launched other kernels than its "
-                                     f"own in a profiled call: {names}")
+            if ([k for k, _ in nodes] != ["KERNEL"]
+                    or "packed_gallop_kernel" not in nodes[0][1]):
+                raise AssertionError(f"K3 enqueued other operations than its "
+                                     f"kernel in a captured call: "
+                                     f"{[(k, t[:300]) for k, t in nodes]}")
     log(f"K3 equal to plain on {n_checks} cases, one launch a call: modes "
         f"none/d1/d2/d4/dm/dv, bp and fastpfor (with exceptions), pad ids, "
         f"C = 8, 256 and 1024 (512 pads, rows 8), a row of pads only, "
         f"candidates above the last candidate block, every row's valid "
-        f"prefix followed by whole SENTINEL warps; a profiled call runs "
-        f"packed_gallop_kernel alone")
+        f"prefix followed by whole SENTINEL warps; a call captured in a "
+        f"CUDA graph enqueues packed_gallop_kernel alone")
     return {"encs": encs, "f": f, "dense": dense, "sparse": sparse}
 
 
@@ -499,11 +493,15 @@ def check_k4(dev) -> None:
 
 
 def packed_fold_operands(grid, r_rows, dev, *, M=None, k_pad=None,
-                         t_pad=None, c_pad=None, e_pad=None, bp=None):
+                         t_pad=None, c_pad=None, e_pad=None, bp=None,
+                         real=None, pad_only=()):
     """K5 operands, laid out as index/batch.py stacks them, for a (Jp, B)
     grid of optional encoded lists and each row's candidates; the pads may
-    be raised past the payloads as a fused family key raises them.  Returns
-    (r, valid, pk tuple, active) on ``dev``, valid with holes."""
+    be raised past the payloads as a fused family key raises them.  With
+    ``real`` each slot keeps its first ``real`` candidate blocks (so
+    candidates above the last one stay in r); the (j, b) of ``pad_only``
+    are active with pad ids alone.  Returns (r, valid, pk tuple, active) on
+    ``dev``, valid with holes."""
     from repro_torch.core import bitpack, intersect as its
     from repro_torch.index import source
     Jp, B = len(grid), len(grid[0])
@@ -532,7 +530,8 @@ def packed_fold_operands(grid, r_rows, dev, *, M=None, k_pad=None,
         lay = bitpack.layout_np(e, k_pad, t_pad, e_pad)
         for k in ("words", "widths", "offsets", "maxes", "exc_pos", "exc_add"):
             cols[k][j, b] = getattr(lay, k)
-        cols["blk"][j, b] = source.pad_block_ids(blks[(j, b)], c_pad, k_pad)
+        ids = blks[(j, b)][:0 if (j, b) in pad_only else real]
+        cols["blk"][j, b] = source.pad_block_ids(ids, c_pad, k_pad)
         active[j, b] = True
     r = np.full((Bp, M), SENT, np.int32)
     for b, rv in enumerate(r_rows):
@@ -542,7 +541,10 @@ def packed_fold_operands(grid, r_rows, dev, *, M=None, k_pad=None,
             tuple(_tb(v, dev) for v in cols.values()), _tb(active, dev))
 
 
-def check_k5(dev, k3: dict) -> None:
+def check_k5(dev, k3: dict) -> tuple:
+    """K5 vs plain, one launch a call, one kernel and the seed
+    copy in a captured call; returns one case's operands (r, valid, pk,
+    active, mode, rows) for ``check_lean_refusals``."""
     from repro_torch.core import bitpack, fastpfor
     from repro_torch.kernels import megakernel, ops
     rng = np.random.default_rng(5)
@@ -553,9 +555,14 @@ def check_k5(dev, k3: dict) -> None:
         nonlocal n_checks
         want = megakernel.packed_fold_plain(r, valid, *pk, active, mode=mode,
                                             block_rows=rows)
-        got = ops.intersect_packed_fold(r, valid, pk, active, mode=mode,
-                                        block_rows=rows)
+        before = ops.launches()["packed_fold_batched"]
+        got = megakernel.packed_fold_batched(r, valid, *pk, active, mode=mode,
+                                             block_rows=rows)
         expect_equal(f"K5 {what}", got, want)
+        if ops.launches()["packed_fold_batched"] != before + 1:
+            raise AssertionError(f"K5 {what}: not one launch a call")
+        expect_equal(f"K5 {what} (ops)", ops.intersect_packed_fold(
+            r, valid, pk, active, mode=mode, block_rows=rows), want)
         if want_hits and not bool(want.any()):
             raise AssertionError(f"K5 {what}: no matches")
         n_checks += 1
@@ -568,6 +575,47 @@ def check_k5(dev, k3: dict) -> None:
         check(f"{codec}-{mode}", *ops_, mode, enc.block_rows)
         if codec == "fastpfor" and not bool((ops_[2][5] >= 0).any()):
             raise AssertionError("K5 check has no FastPFOR exceptions")
+    # C = 8, 256 and 2048 with pad ids: every slot cut to half its bucket
+    # (candidates above the last candidate block), a slot of pad ids only
+    # (its row comes out empty), mode none; C = 2048 over a list of 2300
+    # 8-row blocks
+    n2 = 2300 * 1024
+    f2 = np.cumsum(rng.integers(1, 40, n2)).astype(np.int64)
+    dense2 = np.union1d(rng.choice(f2, 40000), rng.integers(0, int(f2[-1]),
+                                                            20000))
+    for codec in ("bp", "fastpfor"):
+        encode = fastpfor.encode if codec == "fastpfor" else bitpack.encode
+        enc, enc8 = encode(f, mode="none"), encode(f2, mode="none",
+                                                   block_rows=8)
+        for c_pad, e, rs, rows in (
+                (8, enc, [sparse, dense[::3], dense], 32),
+                (256, enc, [dense, dense[1::2], dense[::5]], 32),
+                (2048, enc8, [dense2, dense2[1::2], dense2[::3]], 8)):
+            ops_ = packed_fold_operands([[e, e, e], [e, e, e]], rs, dev,
+                                        c_pad=c_pad, real=c_pad // 2,
+                                        pad_only={(1, 2)})
+            r, valid, pk, _ = ops_
+            last = pk[3][0, 0][pk[4][0, 0, c_pad // 2 - 1]]
+            if not bool((r[0][valid[0]] > last).any()):
+                raise AssertionError("K5 check: no candidate above the last "
+                                     "candidate block")
+            want = check(f"{codec}-none C={c_pad} rows={rows}, half the "
+                         f"slots pads, a slot of pads only", *ops_, "none",
+                         rows)
+            if bool(want[2].any()):
+                raise AssertionError("K5: a row whose active slot has no "
+                                     "real block kept a candidate")
+        if codec == "fastpfor":
+            r, valid, pk, active = ops_
+            nodes = graph_ops(lambda: ops.intersect_packed_fold(
+                r, valid, pk, active, mode="none", block_rows=8))
+            kernels = [t for k, t in nodes if k == "KERNEL"]
+            if (sorted(k for k, _ in nodes) != ["KERNEL", "MEMCPY"]
+                    or "packed_fold_kernel" not in kernels[0]):
+                raise AssertionError(
+                    f"K5 enqueued other operations than its seed copy and "
+                    f"kernel in a captured call: "
+                    f"{[(k, t[:300]) for k, t in nodes]}")
     # 8-row blocks; a single-block list; an empty (disjoint) row
     short = f[:200000]
     tiny = np.sort(rng.choice(1 << 12, 500, replace=False)).astype(np.int64)
@@ -599,20 +647,57 @@ def check_k5(dev, k3: dict) -> None:
     ceil = check("fastpfor-dm family-ceiling pads", *ops_, "dm", 32)
     if not torch.equal(ceil[0], tight[0]) or bool(ceil[1:].any()):
         raise AssertionError("K5 family-ceiling pads change the result")
-    # a 2**23-int window per slot: 2048 candidate slots of 4096 ints
-    enc = k3["encs"][("bp", "d1")]
-    ops_ = packed_fold_operands([[enc, enc]], [dense, sparse], dev,
-                                c_pad=2048)
-    check("bp-d1 window 2**23", *ops_, "d1", 32)
     # Jp = 0
     r, valid, pk, active = ops_
     expect_equal("K5 Jp=0", ops.intersect_packed_fold(
-        r, valid, tuple(a[:0] for a in pk), active[:0], mode="d1",
+        r, valid, tuple(a[:0] for a in pk), active[:0], mode="dm",
         block_rows=32), valid)
-    log(f"K5 equal to plain on {n_checks} cases: modes d1/d2/d4/dm/dv x bp "
-        f"(E = 0) and fastpfor (exceptions), 32- and 8-row blocks, inactive, "
-        f"single-block and empty slots, family-ceiling pads (Bp > B), a "
-        f"2**23-int window, and Jp = 0")
+    log(f"K5 equal to plain on {n_checks} cases, one launch a call: modes none/d1/d2/d4/dm/dv x bp (E = 0) and fastpfor "
+        f"(exceptions), 32- and 8-row blocks, C = 8, 256 and 2048 with half "
+        f"the slots pads and candidates above the last candidate block, an "
+        f"active slot of pad ids only, inactive, single-block and empty "
+        f"slots, family-ceiling pads (Bp > B), and Jp = 0; a call captured "
+        f"in a CUDA graph enqueues the seed copy and packed_fold_kernel "
+        f"alone")
+    return r, valid, pk, active, "dm", 32
+
+
+def check_lean_refusals(dev, k5_args) -> None:
+    """K4's, K5's, K6's and K8's wrappers raise on operands on two devices
+    and on a dtype they do not take, launching nothing, and take the plain
+    versions for CPU tensors without counting a launch (as phase 2's K1,
+    K2, K3 and K7 checks do for theirs)."""
+    from repro_torch.kernels import (bitpack_pack, flash_attention as fa,
+                                     megakernel, ops)
+    rng = np.random.default_rng(9)
+    r, valid, folds, act = (_tb(a, dev) for a in fold_case(
+        rng, 2, 256, 512, 2, 2))
+    d = torch.zeros((2, 32, 128), dtype=torch.int32, device=dev)
+    w = torch.tensor([3, 0], dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev)
+    k5_r, k5_valid, pk, k5_active, mode, rows = k5_args
+    calls = {
+        "K4": (megakernel.decoded_fold_batched, [r, valid, folds, act], {}),
+        "K5": (megakernel.packed_fold_batched,
+               [k5_r, k5_valid, *pk, k5_active],
+               dict(mode=mode, block_rows=rows)),
+        "K6": (bitpack_pack.pack_blocks_padded, [d, w], {}),
+        "K8": (fa.flash_attention, [q, q, q], {}),
+    }
+    before = ops.launches()
+    for what, (fn, args, kw) in calls.items():
+        for i in range(len(args)):
+            for bad in (args[i].cpu(), args[i].to(torch.int64)):
+                try:
+                    fn(*args[:i], bad, *args[i + 1:], **kw)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{what} took a bad operand {i}")
+        fn(*(a.cpu() for a in args), **kw)
+    if ops.launches() != before:
+        raise AssertionError("a refused or CPU call counted a launch")
+    log("K4, K5, K6 and K8 refuse operands on two devices or of another "
+        "dtype and count no launch for them or for CPU tensors")
 
 
 def svb_operands(rng, K: int, rows: int, DW: int, dev) -> list:
@@ -854,12 +939,14 @@ def k8_resources() -> str:
         "combine_kernel": "split combine"}))
 
 
-def k1_k2_resources() -> str:
-    """K1's, K2's, K3's and K7's kernels' registers (``kernel_resources``)."""
-    return resources_line("K1/K2/K3/K7", [
+def index_resources() -> str:
+    """K1's, K2's, K3's, K5's and K7's kernels' registers
+    (``kernel_resources``)."""
+    return resources_line("K1/K2/K3/K5/K7", [
         *kernel_resources("unpack_blocks", {"unpack_blocks_kernel": "K1"}),
         *kernel_resources("gallop_tiles", {"gallop_kernel": "K2"}),
         *kernel_resources("packed_gallop", {"packed_gallop_kernel": "K3"}),
+        *kernel_resources("packed_fold", {"packed_fold_kernel": "K5"}),
         *kernel_resources("svb_decode", {"svb_decode_kernel": "K7"})])
 
 
@@ -1170,8 +1257,8 @@ def time_k8(q, k, v, *, causal: bool, kv_len, bk: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     kw = dict(causal=causal, kv_len=kv_len, bk=bk)
     kern = lambda: fa.flash_attention(q, k, v, **kw)
-    simt = lambda: fa._launch(q, k, v, route="simt", causal=causal,
-                              kv_len=kv_len)
+    simt = lambda: fa._launch(q, k, v, q.get_device(), route="simt",
+                              causal=causal, kv_len=kv_len)
     plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
@@ -1409,10 +1496,11 @@ def phase_done(k: int, t0: float) -> float:
 
 def time_kernels(recorders, launches: dict, save_dir=None) -> list:
     """Phase 4: each recorded kernel timed at its largest main-path call
-    (K1, K3 and K7 also at the largest call of their most frequent size,
-    with their calls by size), K2b on 8 copies of K2a's row; each must
-    equal its plain version there.  Returns the ``kernels`` records; with
-    ``save_dir`` also saves the K1, K2, K3 and K7 operands."""
+    (K1, K3, K5 and K7 also at the largest call of their most frequent
+    size, with their calls by size), K2b on 8 copies of K2a's row; each
+    must equal its plain version there.  Returns
+    the ``kernels`` records; with ``save_dir`` also saves every recorded
+    kernel's operands and one tile of K8's."""
     rows, saved = [], {}
     for rec in recorders:
         if rec.best is None:
@@ -1423,14 +1511,12 @@ def time_kernels(recorders, launches: dict, save_dir=None) -> list:
         if rec.name == "gallop_tiles":
             rows.append(("gallop_tiles_batched",
                          time_k2(*rec.best, batched=8)))
-        if rec.name in ("unpack_blocks", "gallop_tiles",
-                        "packed_gallop_batched", "unpack_svb_blocks"):
-            saved[rec.name] = (rec.name, *rec.best)
+        saved[rec.name] = (rec.name, *rec.best)
         if rec.bucket is None:
             continue
         bucket, freq_args = rec.most_frequent()
         freq = TIMERS[rec.name](*freq_args)
-        if freq["max_abs_err"] != 0:
+        if freq["max_abs_err"]:
             raise AssertionError(f"{rec.name}: kernel differs from plain at "
                                  f"the most frequent main-path call size")
         key = f"{rec.by.lower()}_histogram"
@@ -1442,12 +1528,17 @@ def time_kernels(recorders, launches: dict, save_dir=None) -> list:
             f"{freq.pop('shape')}: " + ", ".join(f"{k} {v}"
                                                   for k, v in freq.items()))
     if save_dir is not None:
+        # K8's launch path at one tile of gemma-7b's heads, for host_us
+        q1, k1, v1 = flash_inputs(8, (1, 64, 64, 16, 16, 256), torch.bfloat16,
+                                  torch.device("cuda"))
+        saved["flash_attention@tile"] = ("flash_attention", (q1, k1, v1),
+                                         {"causal": True})
         save_operands(save_dir, saved)
     kernels = []
     for kname, res in rows:
-        if res["max_abs_err"] != 0:
+        if res["max_abs_err"]:
             raise AssertionError(f"{kname}: kernel differs from plain at the "
-                                 f"main-path shape")
+                                 f"main-path shape: {res['max_abs_err']}")
         notes = {k: res.pop(k) for k in ("shape", "window_bytes") if k in res}
         log(f"{kname} at {notes.pop('shape')}: " + ", ".join(
             f"{k} {v}" for k, v in {**res, **notes}.items()))
@@ -1475,8 +1566,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                             "CUDA card.")
     p.add_argument("--save-operands", metavar="DIR", default=None,
-                   help="also write the operands phase 4 times K1, K2, K3 "
-                        "and K7 on to DIR/operands.pt")
+                   help="also write the operands phase 4 times the kernels "
+                        "on to DIR/operands.pt")
     save_dir = p.parse_args(argv).save_operands
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -1534,12 +1625,12 @@ def main(argv=None) -> int:
     check_k2(dev)
     k3 = check_k3(dev)
     check_k4(dev)
-    check_k5(dev, k3)
+    check_lean_refusals(dev, check_k5(dev, k3))
     del k3
     check_k6(dev)
     check_k7(dev)
     check_k8(dev)
-    log(k1_k2_resources())
+    log(index_resources())
     t_phase = phase_done(2, t_phase)
 
     recorders = [
@@ -1555,7 +1646,8 @@ def main(argv=None) -> int:
                  lambda r, v, f, a: f.shape[0] * r.numel()
                  * max((f.shape[2] - 1).bit_length(), 1)),
         Recorder(megakernel, "packed_fold_batched",
-                 lambda *a, **k: a[6].numel()),
+                 lambda *a, **k: a[6].numel(),
+                 bucket=lambda *a, **k: a[6].shape[2], by="C"),
         Recorder(svb_decode, "unpack_svb_blocks",
                  lambda *a, **k: a[0].numel(),
                  bucket=lambda *a, **k: 1 << max(a[0].shape[0] - 1, 0)

@@ -357,8 +357,11 @@ def _launch_bitmap_group(key: GroupKey, items: list[_Item],
 def _chunk_size(key: GroupKey, items: list[_Item],
                 max_group_size: int) -> int:
     """Items per device program: flat cap ∧ operand-int budget (so huge J·N
-    stacks, packed words and K5's decode window shrink the batch instead of
-    exhausting device memory).  Fused keys budget at their arity ceilings."""
+    stacks and packed words shrink the batch instead of exhausting device
+    memory).  Fused keys budget at their arity ceilings.  The budget still
+    counts the reference's decode window of the packed folds, which K5 no
+    longer allocates, so that the port's chunks, and its dispatch counts,
+    stay the reference's."""
     if key.kind == "bitmap":
         J = (key.fused[0] if key.fused else
              max(_n_bitmaps(it) for it in items))
@@ -374,8 +377,8 @@ def _chunk_size(key: GroupKey, items: list[_Item],
             k_pad, t_pad, c_pad, e_pad, rows, _ = key.packed
             if not key.fused:
                 Jp = max(len(it.psrc) for it in items)
-            # compressed words + per-block metadata + K5's decode window
-            # (c_pad blocks of rows×128 per slot)
+            # compressed words + per-block metadata + the reference's decode
+            # window (c_pad blocks of rows×128 per slot)
             per_item += Jp * (t_pad * 128 + 3 * k_pad + c_pad
                               + 2 * e_pad + c_pad * rows * 128)
     return max(1, min(max_group_size, GROUP_INT_BUDGET // max(per_item, 1)))

@@ -60,10 +60,10 @@ SIGNATURES = {
     "repro_decoded_fold": ("decoded_fold",
                            [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P]),
     # r, valid, B, M, words, Tp, widths, offsets, maxes, Kp, blk, C, exc_pos,
-    # exc_add, E, block_rows, mode, Jp, active, window, out, stream
+    # exc_add, E, block_rows, mode, Jp, active, out, stream
     "repro_packed_fold": ("packed_fold",
                           [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _I,
-                           _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+                           _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     # deltas, widths, K, out, stream
     "repro_pack_blocks": ("bitpack_pack", [_P, _P, _I, _P, _P]),
     # ctrl, CW, data, DW, doffs, seeds, K, block_rows, mode, out, stream
@@ -214,16 +214,12 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
                          f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # --------------------------------------------------------------------------
-# the lean launch path (K1, K2, K3 and K7's wrappers)
+# the launch path of every wrapper
 # --------------------------------------------------------------------------
 
 def kernel_device(*tensors: torch.Tensor) -> int:
-    """``kernel_path`` for a lean launch: the CUDA device index the kernel
+    """``kernel_path`` for a launch: the CUDA device index the kernel
     runs on (so the caller probes once and passes it on), or -1 for CPU
     tensors, where the plain version runs.  Raises as ``kernel_path`` does:
     tensors on different devices, another device type, a card below

@@ -6,7 +6,8 @@ CUDA kernel in ``csrc/bitpack_pack.cu``; ``pack_blocks_padded_plain`` is the
 same function in torch.  One (32, 128) delta tile packs into a (32, 128)
 word tile whose first ``b`` rows are the packed words and the rest zero:
 the block-padded mirror of K1.  The deltas are computed outside the kernel
-(``ops.pack_blocks``), as in the reference.
+(``ops.pack_blocks``), as in the reference.  The wrapper takes the lean
+launch path (``_build.kernel_device`` / ``_build.launch``).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def pack_blocks_padded(deltas, widths) -> torch.Tensor:
     (< 2**width per block), widths (K,) int32 in [0, 32].  Returns
     (K, 32, 128) int32 bit patterns of the block-padded packed words.  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
-    if not _build.kernel_path(deltas, widths):
+    index = _build.kernel_device(deltas, widths)
+    if index < 0:
         return pack_blocks_padded_plain(deltas, widths)
     _build.require(deltas, "deltas", torch.int32, 3)
     _build.require(widths, "widths", torch.int32, 1)
@@ -61,12 +63,7 @@ def pack_blocks_padded(deltas, widths) -> torch.Tensor:
     if widths.shape[0] != K:
         raise ValueError("widths must have one entry per block")
     out = torch.empty_like(deltas)
-    if K == 0:
-        return out
-    fn = _build.function("repro_pack_blocks")
-    with torch.cuda.device(deltas.device):
-        err = fn(deltas.data_ptr(), widths.data_ptr(), K, out.data_ptr(),
-                 _build.stream_of(deltas))
-    _build.check(err, "pack_blocks_padded")
-    _build.count("pack_blocks_padded")
+    if K:
+        _build.launch("pack_blocks_padded", "repro_pack_blocks", index,
+                      deltas.data_ptr(), widths.data_ptr(), K, out.data_ptr())
     return out

@@ -5,8 +5,8 @@ Port of ``src/repro/kernels/bitunpack.py``: ``unpack_blocks`` replaces the
 Pallas kernel ``unpack_blocks`` (``make_unpack_kernel``) with the CUDA
 kernel in ``csrc/unpack_blocks.cu``; ``decode_candidates`` is the plain
 version of the candidate-block decode that K3 (``csrc/packed_gallop.cu``)
-and K5 (``csrc/packed_decode.cuh``) run (the reference's
-``decode_candidates``).
+and K5 (``csrc/packed_fold.cu``) run, a block a warp in shared memory
+through ``csrc/packed_warp.cuh`` (the reference's ``decode_candidates``).
 
 The Hopper kernel reads the flat (T, 128) words through per-block row
 offsets, so a list is decoded in place: the reference's gather into

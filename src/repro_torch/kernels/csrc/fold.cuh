@@ -1,9 +1,10 @@
-// The SvS mask fold shared by K4 (decoded_fold.cu) and K5 (packed_fold.cu):
-// AND the galloping membership of every candidate against a (J, B, N) stack
-// of sorted lists into the candidate's validity bit.
+// K4's SvS mask fold (decoded_fold.cu): AND the galloping membership of
+// every candidate against a (J, B, N) stack of sorted lists into the
+// candidate's validity bit.  (K5, packed_fold.cu, folds by clearing bits
+// instead, a warp a candidate block.)
 //
-// Replaces the fold of src/repro/kernels/megakernel.py (bodies
-// make_decoded_fold_kernel and make_packed_fold_kernel).  The TPU ran a
+// Replaces the fold of src/repro/kernels/megakernel.py (body
+// make_decoded_fold_kernel).  The TPU ran a
 // (B, J) grid in order and revisited row b's output block across the j
 // axis, seeding it from `valid` at j = 0.  CUDA blocks run concurrently and
 // in no order, so the j axis moves inside the thread instead: grid

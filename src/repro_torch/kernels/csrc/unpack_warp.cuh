@@ -1,8 +1,8 @@
 // Warp-per-block integrated unpack + prefix sum (paper Algorithm 1): K1's
-// Hopper design (unpack_blocks.cu), which K3 (packed_gallop.cu) runs too,
-// decoding each candidate block into shared memory; K7 (svb_decode.cu)
-// shares its per-row-group prefix sum (`prefix_rows`) and scans.  K5 may take
-// it later in place of common.cuh's CTA-per-block decode_block.
+// Hopper design (unpack_blocks.cu), which K3 (packed_gallop.cu) and K5
+// (packed_fold.cu) run too, through packed_warp.cuh, decoding each candidate
+// block into shared memory; K7 (svb_decode.cu) shares its per-row-group
+// prefix sum (`prefix_rows`) and scans.
 //
 // Replaces the per-block body of src/repro/kernels/bitunpack.py
 // (make_unpack_kernel).  One warp decodes one block of `rows` x 128 values:

@@ -47,7 +47,9 @@ float32); ``split`` and ``simt`` keep p in float32.  ``bf16_allowance``
 states, elementwise, how far a bf16 output may lie from the plain version's
 on each side of that line (always within the reference's bf16 tolerance of
 0.05).  ``LAUNCHES["flash_attention"]`` counts one per call (the split
-route's two launches included); ``ROUTES`` counts the calls by route.
+route's two launches included); ``ROUTES`` counts the calls by route.  The
+wrapper takes the lean launch path (``_build.kernel_device`` /
+``_build.launch``).
 """
 
 from __future__ import annotations
@@ -167,44 +169,37 @@ def _split_plan(B: int, Hkv: int, n_visible: int,
     return -(-n_visible // chunk), chunk
 
 
-def _launch(q, k, v, *, route: str, causal: bool, kv_len) -> torch.Tensor:
-    """Launch the kernel of ``route`` on checked CUDA operands and count it.
-    ``flash_attention`` calls it with ``_route``'s choice; the card tests
-    and chip_smoke.py also call it with route="simt" to hold a route
-    against the SIMT kernel at the same shape."""
+def _launch(q, k, v, index: int, *, route: str, causal: bool,
+            kv_len) -> torch.Tensor:
+    """Launch the kernel of ``route`` on checked operands on CUDA device
+    ``index`` and count it.  ``flash_attention`` calls it with ``_route``'s
+    choice; the card tests and chip_smoke.py also call it with route="simt"
+    to hold a route against the SIMT kernel at the same shape."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     kvl = -1 if kv_len is None else max(int(kv_len), 0)
-    stream = _build.stream_of(q)
-    with torch.cuda.device(q.device):
-        if route == "simt":
-            err = _build.function("repro_flash_attention")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
-                D, int(causal), kvl, _DTYPE_CODES[q.dtype], out.data_ptr(),
-                stream)
-        elif route == "tc":
-            err = _build.function("repro_flash_attention_tc")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
-                D, int(causal), kvl, out.data_ptr(), stream)
-        elif route == "split":
-            n_visible = Sk if kv_len is None else min(kvl, Sk)
-            n_split, chunk = _split_plan(B, Hkv, n_visible,
-                                         _build.sm_count(q.device.index))
-            # scratch: acc (B, Hkv, n_split, rows, D), then (m, l) a row
-            n_rows = B * Hkv * n_split * Sq * (H // Hkv)
-            part = torch.empty(n_rows * (D + 2), dtype=torch.float32,
-                               device=q.device)
-            err = _build.function("repro_flash_decode")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv,
-                D, n_visible, n_split, chunk, part.data_ptr(),
-                part.data_ptr() + 4 * n_rows * D, out.data_ptr(), stream)
-        else:
-            raise ValueError(f"unknown route {route!r}")
-    _build.check(err, f"flash_attention ({route})")
-    _build.count("flash_attention")
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, Hkv, D)
+    if route == "simt":
+        _build.launch("flash_attention", "repro_flash_attention", index, *qkv,
+                      int(causal), kvl, _DTYPE_CODES[q.dtype], out.data_ptr())
+    elif route == "tc":
+        _build.launch("flash_attention", "repro_flash_attention_tc", index,
+                      *qkv, int(causal), kvl, out.data_ptr())
+    elif route == "split":
+        n_visible = Sk if kv_len is None else min(kvl, Sk)
+        n_split, chunk = _split_plan(B, Hkv, n_visible, _build.sm_count(index))
+        # scratch: acc (B, Hkv, n_split, rows, D), then (m, l) a row
+        n_rows = B * Hkv * n_split * Sq * (H // Hkv)
+        part = torch.empty(n_rows * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        _build.launch("flash_attention", "repro_flash_decode", index, *qkv,
+                      n_visible, n_split, chunk, part.data_ptr(),
+                      part.data_ptr() + 4 * n_rows * D, out.data_ptr())
+    else:
+        raise ValueError(f"unknown route {route!r}")
     ROUTES[route] += 1
     return out
 
@@ -216,7 +211,8 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     ``_route``'s route, which needs q, k and v contiguous, of one dtype,
     and D ≤ 256."""
-    if not _build.kernel_path(q, k, v):
+    index = _build.kernel_device(q, k, v)
+    if index < 0:
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      bq=bq, bk=bk)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -233,5 +229,5 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_len: int | None = None,
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
     _check_tiles(q, k, bq, bk)
-    return _launch(q, k, v, route=_route(q, k, v, causal, kv_len),
+    return _launch(q, k, v, index, route=_route(q, k, v, causal, kv_len),
                    causal=causal, kv_len=kv_len)

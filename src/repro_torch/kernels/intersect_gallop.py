@@ -16,7 +16,8 @@ Port of ``src/repro/kernels/intersect_gallop.py``:
       CUDA in ``csrc/packed_gallop.cu``: one launch, one warp per (row,
       candidate slot), which decodes its block into shared memory with K1's
       warp decode and searches there the candidates only that block can
-      hold; pad slots write nothing.  Lean launch path, no scratch.
+      hold (the warp body is ``csrc/packed_warp.cuh``, which K5 shares);
+      pad slots write nothing.  Lean launch path, no scratch.
 
 The plain versions are ``core.intersect.intersect_gallop`` and
 ``core.intersect.intersect_packed_batch``; a wrapper takes them only for CPU

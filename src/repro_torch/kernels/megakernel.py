@@ -5,17 +5,21 @@ Port of ``src/repro/kernels/megakernel.py``:
 
   decoded_fold_batched  ← Pallas ``decoded_fold_batched`` (body
       ``make_decoded_fold_kernel``); CUDA kernel ``fold_kernel`` in
-      ``csrc/fold.cuh``, library ``csrc/decoded_fold.cu``.
+      ``csrc/fold.cuh``, library ``csrc/decoded_fold.cu``.  The TPU kernel
+      revisits row b's output block across a sequential j axis; the CUDA
+      kernel loops over j inside the thread of each candidate instead, so no
+      order between blocks is needed.
   packed_fold_batched  ← Pallas ``packed_fold_batched`` (body
-      ``make_packed_fold_kernel``); CUDA in ``csrc/packed_fold.cu``: the
-      candidate-block decode (``csrc/packed_decode.cuh``) over every active
-      (j, b) slot into a window in device memory, then ``fold_kernel`` over
-      the window.
+      ``make_packed_fold_kernel``); CUDA in ``csrc/packed_fold.cu``: one pass
+      with no window.  ``valid`` is copied into the output, then a warp per
+      (j, b, candidate slot) decodes its block in shared memory (K3's warp
+      body, ``csrc/packed_warp.cuh``) and clears the candidates that block
+      can hold but does not; the fold's AND is a clear, so the warps need no
+      order.
 
-The TPU kernels revisit row b's output block across a sequential j axis;
-the CUDA kernel loops over j inside the thread of each candidate instead
-(``csrc/fold.cuh``), so no order between blocks is needed.  Both ANDs are
-seeded from ``valid``, and an inactive (j, b) slot is the identity.
+Both ANDs are seeded from ``valid``, and an inactive (j, b) slot is the
+identity.  Both wrappers take the lean launch path (``_build.kernel_device``
+/ ``_build.launch``).
 
 The plain versions loop over j with ``core.intersect.intersect_gallop`` /
 ``intersect_packed_batch`` and AND through ``torch.where(active, hit,
@@ -31,7 +35,7 @@ from repro_torch.core.deltas import MODE_IDS
 from repro_torch.kernels import _build
 
 LANES = 128
-MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y (rows, or slots for K5)
+MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y (K4's rows)
 
 
 def _fold_and(out, hit, active_j):
@@ -77,7 +81,8 @@ def decoded_fold_batched(r, valid, folds, fold_active) -> torch.Tensor:
     ``valid`` without a launch."""
     if folds.shape[0] == 0:
         return valid
-    if not _build.kernel_path(r, valid, folds, fold_active):
+    index = _build.kernel_device(r, valid, folds, fold_active)
+    if index < 0:
         return decoded_fold_plain(r, valid, folds, fold_active)
     B, M = _check_rows(r, valid)
     _build.require(folds, "folds", torch.int32, 3)
@@ -89,15 +94,11 @@ def decoded_fold_batched(r, valid, folds, fold_active) -> torch.Tensor:
                          f"{tuple(fold_active.shape)}")
     if B > MAX_GRID_Y:
         raise ValueError(f"B={B} exceeds the grid limit {MAX_GRID_Y}")
-    out = torch.empty((B, M), dtype=torch.bool, device=r.device)
-    if B == 0 or M == 0:
-        return out
-    fn = _build.function("repro_decoded_fold")
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), valid.data_ptr(), B, M, folds.data_ptr(), J, N,
-                 fold_active.data_ptr(), out.data_ptr(), _build.stream_of(r))
-    _build.check(err, "decoded_fold_batched")
-    _build.count("decoded_fold_batched")
+    out = r.new_empty((B, M), dtype=torch.bool)
+    if B and M:
+        _build.launch("decoded_fold_batched", "repro_decoded_fold", index,
+                      r.data_ptr(), valid.data_ptr(), B, M, folds.data_ptr(),
+                      J, N, fold_active.data_ptr(), out.data_ptr())
     return out
 
 
@@ -109,14 +110,32 @@ def packed_fold_batched(r, valid, words, widths, offsets, maxes, blk_ids,
     ids ≥ Kp, exc_pos/exc_add (Jp, B, E) ascending and -1-padded (E may be
     0), uint32 arrays as int32 bit patterns; active (Jp, B) bool.  Returns
     the (B, M) bool mask after folding every active slot's partial decode.
-    Jp = 0 returns ``valid`` without a launch."""
+    Jp = 0 returns ``valid`` without a launch.
+
+    The kernel copies ``valid`` into the output and then only clears: warp
+    (j, b, c) searches in its decoded block only the candidates x with
+    hi(c−1) < x ≤ hi(c), hi(c) = ``maxes[j, b, blk_ids[j, b, c]]``, that
+    ``valid`` still holds, and clears the non-members; the candidates above
+    every candidate block of an active slot, and the whole row where an
+    active slot has no real block, are cleared.  That equals the
+    reference's gallop over the concatenated window of each slot's
+    candidate blocks, ANDed over the active slots, because (i) every row of
+    r is strictly increasing, then SENTINEL, (ii) the real candidate slots
+    of each (j, b) form an ascending prefix and (iii) block id decodes to
+    values in (maxes[id−1], maxes[id]]: the only caller,
+    ``index.batch._svs_program`` through ``ops.intersect_packed_fold``,
+    gives (i) with its seed rows (``_assemble_svs``), (ii) with
+    ``_stack_packed``'s candidate ids and ``source.pad_block_ids``, and the
+    encoders give (iii) (``csrc/packed_fold.cu``).  ``valid`` may have
+    holes."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown delta mode {mode!r}")
     if words.shape[0] == 0:
         return valid
     ops_ = (r, valid, words, widths, offsets, maxes, blk_ids, exc_pos,
             exc_add, active)
-    if not _build.kernel_path(*ops_):
+    index = _build.kernel_device(*ops_)
+    if index < 0:
         return packed_fold_plain(*ops_, mode=mode, block_rows=block_rows)
     B, M = _check_rows(r, valid)
     _build.require(words, "words", torch.int32, 4)
@@ -136,20 +155,18 @@ def packed_fold_batched(r, valid, words, widths, offsets, maxes, blk_ids,
         raise ValueError("widths/offsets/maxes and exc_pos/exc_add must agree")
     if not 1 <= block_rows <= 32:
         raise ValueError(f"block_rows must be in [1, 32], got {block_rows}")
-    if Jp * B > MAX_GRID_Y:
-        raise ValueError(f"Jp·B={Jp * B} exceeds the grid limit {MAX_GRID_Y}")
-    out = torch.empty((B, M), dtype=torch.bool, device=r.device)
-    if B == 0 or M == 0:
-        return out
-    window = torch.empty((Jp, B, C * block_rows * LANES), dtype=torch.int32,
-                         device=r.device)
-    fn = _build.function("repro_packed_fold")
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), valid.data_ptr(), B, M, words.data_ptr(), Tp,
-                 widths.data_ptr(), offsets.data_ptr(), maxes.data_ptr(), Kp,
-                 blk_ids.data_ptr(), C, exc_pos.data_ptr(), exc_add.data_ptr(),
-                 E, block_rows, MODE_IDS[mode], Jp, active.data_ptr(),
-                 window.data_ptr(), out.data_ptr(), _build.stream_of(r))
-    _build.check(err, "packed_fold_batched")
-    _build.count("packed_fold_batched")
+    if Jp * B * C >= 2**31:
+        raise ValueError(f"Jp·B·C={Jp * B * C} slots exceed the kernel's "
+                         f"int32 slot index")
+    if words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes a lane)")
+    out = r.new_empty((B, M), dtype=torch.bool)
+    if B and M:
+        _build.launch("packed_fold_batched", "repro_packed_fold", index,
+                      r.data_ptr(), valid.data_ptr(), B, M, words.data_ptr(),
+                      Tp, widths.data_ptr(), offsets.data_ptr(),
+                      maxes.data_ptr(), Kp, blk_ids.data_ptr(), C,
+                      exc_pos.data_ptr(), exc_add.data_ptr(), E, block_rows,
+                      MODE_IDS[mode], Jp, active.data_ptr(), out.data_ptr())
     return out

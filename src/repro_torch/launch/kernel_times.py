@@ -1,7 +1,7 @@
 """Kernel times on the card, through the wrappers a user calls.
 
 For each kernel K1–K7 at an operand set (the main path's, as
-``chip_smoke.py`` records them):
+``chip_smoke.py`` records them), and K8 at one tile:
 
   ms         CUDA events around 30 back-to-back wrapper calls: host and
              device together, as a caller that does not batch launches sees
@@ -32,8 +32,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import sys
 import time
+import warnings
 
 import torch
 
@@ -66,6 +69,47 @@ def graph_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, iters=5, warm=1) / iters
+
+
+NODE_KINDS = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY",
+              "EVENT_RECORD", "WAIT_EVENT", "MEM_ALLOC", "MEM_FREE",
+              "BATCH_MEM_OP", "CONDITIONAL", "EXT_SEMAS_SIGNAL",
+              "EXT_SEMAS_WAIT")
+
+
+def graph_ops(fn) -> list[tuple[str, str]]:
+    """What one call of ``fn`` puts on the stream: the nodes of a CUDA graph
+    that captured it, as ``dot_nodes`` reads them.  Unlike a profiler trace,
+    which can come back with no device event at all, a captured graph holds
+    every operation the call enqueued."""
+    from repro_torch.kernels import _build
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"graph-{os.getpid()}.dot"
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            graph.debug_dump(str(path))
+        return dot_nodes(path.read_text())
+    finally:
+        path.unlink(missing_ok=True)
+
+
+def dot_nodes(text: str) -> list[tuple[str, str]]:
+    """The nodes of a ``cudaGraphDebugDotPrint`` dump, in its order and
+    without its edges, as (kind, label): kind is the first node type of
+    ``NODE_KINDS`` that the node's text names (KERNEL, MEMCPY, …; "?" if
+    none), and the label of a kernel node holds the kernel's name."""
+    nodes = []
+    for body in re.findall(r'^"[^"\n]*node_\d+"\s*\[(.*?)\];', text,
+                           re.M | re.S):
+        m = re.search(r"\b(" + "|".join(NODE_KINDS) + r")\b", body)
+        nodes.append((m.group(1) if m else "?", body))
+    return nodes
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -272,8 +316,11 @@ def time_k4(args, kwargs) -> dict:
 
 
 def time_k5(args, kwargs) -> dict:
+    """K5.  Where the tree's K5 is the two-launch design (candidate decode
+    into a window in device memory, then K4's fold over it), the window's
+    size is also reported (``window_bytes``)."""
     from repro_torch.core import intersect as its
-    from repro_torch.kernels import megakernel
+    from repro_torch.kernels import _build, megakernel
     (r, valid, words, widths, offsets, maxes, blk, exc_pos, exc_add,
      active) = args
     kern = lambda: megakernel.packed_fold_batched(*args, **kwargs)
@@ -303,20 +350,21 @@ def time_k5(args, kwargs) -> dict:
     _, fold_ops, lives = _fold_work(valid, active, lambda j: its.intersect_packed_batch(
         r, words[j], widths[j], offsets[j], maxes[j], blk[j], exc_pos[j],
         exc_add[j], **kwargs), C * per)
-    # as for K3, the window is scratch and not counted: the candidate
-    # blocks' words and metadata, their exceptions, r, valid, the mask and
-    # the active flags
+    # as for K3: the candidate blocks' words and metadata, their
+    # exceptions, r, valid, the mask and the active flags
     nbytes = (int((wid * real).sum()) * 512 + int(real.sum()) * 16
               + touched * 8 + B * M * 6 + Jp * B)
     nops = int(real.sum()) * per * 12 + fold_ops
     b_ms, b_by = bound(nbytes, nops)
-    window = Jp * B * C * per * 4
-    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
-            "graph_ms": graph_ms(kern), "host_us": host_us(
-                lambda: megakernel.packed_fold_batched(*one, **kwargs)),
-            "plain_ms": cuda_ms(plain, iters=3, warm=1), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "library_graph_ms": None,
-            "window_bytes": window,
+    out = {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+           "graph_ms": graph_ms(kern), "host_us": host_us(
+               lambda: megakernel.packed_fold_batched(*one, **kwargs)),
+           "plain_ms": cuda_ms(plain, iters=3, warm=1), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "library_graph_ms": None}
+    # the two-launch entry took 22 arguments, the window among them
+    if len(_build.SIGNATURES["repro_packed_fold"][1]) == 22:
+        out["window_bytes"] = Jp * B * C * per * 4
+    return {**out,
             "shape": f"Jp={Jp} B={B} M={M} C={C} blocks x {rows} rows, "
                      f"Kp={Kp}, {int(active.sum())} active slots, "
                      f"{int(real.sum())} real candidate blocks, live per "
@@ -364,10 +412,26 @@ def time_k7(args, kwargs) -> dict:
                      f"mode {mode}"}
 
 
+def time_k8_launch(args, kwargs) -> dict:
+    """K8 at one tile (``host_us``'s shape in ``chip_smoke.time_k8``): the
+    launch path's host time a call, and the call back to back and in a
+    graph, beside the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    kern = lambda: fa.flash_attention(q, k, v, **kwargs)
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kwargs)
+    err = float((kern().float() - plain().float()).abs().max())
+    return {"max_abs_err": err, "k8_route": fa._route(
+                q, k, v, kwargs.get("causal", True), kwargs.get("kv_len")),
+            "ms": cuda_ms(kern), "graph_ms": graph_ms(kern),
+            "host_us": host_us(kern), "plain_ms": cuda_ms(plain, iters=5),
+            "shape": f"q/k/v {tuple(q.shape)} {q.dtype}, {kwargs}"}
+
+
 TIMERS = {"unpack_blocks": time_k1, "gallop_tiles": time_k2,
           "packed_gallop_batched": time_k3, "decoded_fold_batched": time_k4,
           "packed_fold_batched": time_k5, "pack_blocks_padded": time_k6,
-          "unpack_svb_blocks": time_k7}
+          "unpack_svb_blocks": time_k7, "flash_attention": time_k8_launch}
 
 
 def time_saved(path: str) -> dict:

@@ -17,7 +17,9 @@ from repro_torch.core import intersect as its
 from repro_torch.index import source
 from repro_torch.kernels import bitunpack as tkb
 from repro_torch.kernels import intersect_gallop as tkg
+from repro_torch.kernels import megakernel as tmk
 from repro_torch.kernels import ops
+from repro_torch.launch.kernel_times import graph_ops
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -353,22 +355,16 @@ def test_packed_gallop_fused_1024_slots_matches_plain(cuda, codec):
 
 
 def test_packed_gallop_is_one_kernel_in_a_profile(cuda):
-    """A profiled K3 call runs its own kernel alone: neither K2's
-    gallop_kernel nor the window decode (packed_decode_kernel)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """A K3 call, captured in a CUDA graph, enqueues its own kernel alone:
+    neither K2's gallop_kernel nor the window decode (packed_decode_kernel).
+    The graph's nodes are every operation the call put on the stream, where
+    a profiler trace can come back with no device event."""
     case, rows = fused_case(6, "d1", "fastpfor", c_pad=64)
     args = [_t(case[k], cuda) for k in PACKED_ORDER]
-    ops.intersect_packed_batch(*args, mode="d1", block_rows=rows)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.intersect_packed_batch(*args, mode="d1", block_rows=rows)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
-    assert any("packed_gallop_kernel" in k for k in names), names
-    assert not any("packed_decode" in k or ("gallop_kernel" in k and
-                   "packed_gallop_kernel" not in k) for k in names), names
+    nodes = graph_ops(lambda: ops.intersect_packed_batch(
+        *args, mode="d1", block_rows=rows))
+    assert [k for k, _ in nodes] == ["KERNEL"], nodes
+    assert "packed_gallop_kernel" in nodes[0][1], nodes
 
 
 def test_packed_gallop_and_svb_lean_path_refuse_bad_operands(cuda):
@@ -516,6 +512,208 @@ def test_packed_fold_matches_plain(cuda, mode, codec):
         assert want.any() and not want[args[1]].all()
         if codec == "fastpfor":
             assert (pk[5] >= 0).any()
+
+
+FOLD_ORDER = ("r", "valid") + PACKED_ORDER[1:] + ("active",)
+
+
+def fold_fused_case(seed: int, mode: str, codec: str, c_pad: int,
+                    rows: int = 32, ceiling: bool = False):
+    """K5 operands in wrapper order (``FOLD_ORDER``) for a (Jp=2, B=4) stack
+    laid out as index/batch.py stacks it (also the CPU emulation's,
+    tests/test_torch_fold_hopper.py).  Row b folds list (0, b) and, but for
+    b = 2, list (1, b), which holds two thirds of list (0, b)'s values.  A
+    real slot's candidate ids are its candidates' blocks cut to c_pad // 2,
+    so half the slots are pads and some candidates lie above the last
+    candidate block.  r holds members of both lists, non-members, block
+    maxes and the maxes before them, values past the lists, then SENTINEL;
+    valid has holes.  Slot (1, 2) is inactive; slot (1, 3) is active with
+    pad ids only, so row 3 comes out empty.  ``ceiling`` raises the k/t/e
+    pads, c_pad, Jp and Bp past the payloads as a fused family key raises
+    them (fold 2 and row 4 inactive).  bp layouts have no exception columns
+    (E = 0)."""
+    rng = np.random.default_rng(seed)
+    n = (c_pad + c_pad // 4 + 2) * rows * 128
+    B = 4
+    enc = (lambda f: tf.encode(f, mode=mode, block_rows=rows)) \
+        if codec == "fastpfor" else \
+        (lambda f: tb.encode(f, mode=mode, block_rows=rows))
+    encs, rs = {}, []
+    for b in range(B):
+        gaps = np.where(rng.random(n) < 0.03, rng.integers(1, 1 << 14, n),
+                        rng.integers(1, 40, n))
+        f0 = np.cumsum(gaps).astype(np.int64)
+        f1 = np.sort(rng.choice(f0, 2 * n // 3, replace=False))
+        encs[(0, b)] = enc(f0)
+        if b != 2:
+            encs[(1, b)] = enc(f1)
+        mx = encs[(0, b)].maxes.numpy().view(np.uint32).astype(np.int64)
+        ids = rng.choice(encs[(0, b)].num_blocks, 3 * c_pad // 4 + 1,
+                         replace=False)
+        rs.append(np.unique(np.concatenate([
+            rng.choice(f1, 2 * c_pad), rng.choice(f0, 2 * c_pad),
+            rng.integers(0, int(f0[-1]) + 9999, 2 * c_pad),
+            mx[ids], mx[np.maximum(ids - 1, 0)]])))
+    pads = [max(tb.self_pads(e)[i] for e in encs.values()) for i in range(3)]
+    Jp, Bp, cp = 2, B, c_pad
+    if ceiling:
+        pads = [2 * pads[0], 2 * pads[1], 2 * max(pads[2], 4)]
+        Jp, Bp, cp = 3, B + 1, 2 * c_pad
+    k_pad, t_pad, e_pad = pads
+    M = its.pow2_bucket(max(len(x) for x in rs) + 64)
+    case = {"r": np.full((Bp, M), SENT, np.int32),
+            "words": np.zeros((Jp, Bp, t_pad, 128), np.uint32),
+            "widths": np.zeros((Jp, Bp, k_pad), np.int32),
+            "offsets": np.zeros((Jp, Bp, k_pad), np.int32),
+            "maxes": np.zeros((Jp, Bp, k_pad), np.uint32),
+            "blk": np.full((Jp, Bp, cp), k_pad, np.int32),
+            "exc_pos": np.full((Jp, Bp, e_pad), -1, np.int32),
+            "exc_add": np.zeros((Jp, Bp, e_pad), np.uint32),
+            "active": np.zeros((Jp, Bp), bool)}
+    for b, rv in enumerate(rs):
+        case["r"][b, : rv.size] = rv
+    for (j, b), e in encs.items():
+        lay = tb.layout_np(e, k_pad, t_pad, e_pad)
+        for k in ("words", "widths", "offsets", "maxes", "exc_pos",
+                  "exc_add"):
+            case[k][j, b] = getattr(lay, k)
+        blk = tb.candidate_block_ids(lay.maxes[: e.num_blocks], rs[b])
+        assert len(blk) > c_pad // 2
+        case["blk"][j, b] = source.pad_block_ids(
+            blk[:0] if (j, b) == (1, 3) else blk[: c_pad // 2], cp, k_pad)
+        case["active"][j, b] = True
+    case["valid"] = (case["r"] != SENT) & (rng.random((Bp, M)) < 0.85)
+    last = case["maxes"][0, 0].astype(np.int64)[case["blk"][0, 0,
+                                                            c_pad // 2 - 1]]
+    assert (case["r"][0].astype(np.int64)[case["valid"][0]] > last).any()
+    if codec == "fastpfor" and mode != "none":     # none has no exceptions
+        assert (case["exc_pos"] >= 0).any()
+    return case, rows
+
+
+def _packed_fold_on_card(cuda, case, mode, rows):
+    """K5 on the card against its plain version: one launch
+    a call; rows 0 and 1 have matches and misses, row 3 (an active slot of
+    pad ids only) none."""
+    cpu = [_tb(case[k]) for k in FOLD_ORDER]
+    want = tmk.packed_fold_plain(*cpu, mode=mode, block_rows=rows)
+    card = [a.to(cuda) for a in cpu]
+    before = ops.launches()["packed_fold_batched"]
+    got = tmk.packed_fold_batched(*card, mode=mode, block_rows=rows)
+    torch.cuda.synchronize()
+    assert ops.launches()["packed_fold_batched"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert want[:2].any() and not want[3].any()
+    assert not want[0][cpu[1][0]].all()
+    return want
+
+
+@pytest.mark.parametrize("codec", ["bp", "fastpfor"])
+@pytest.mark.parametrize("mode", MODES)
+def test_packed_fold_fused_matches_plain(cuda, mode, codec):
+    """K5's one pass at C = 8 (half the slots pads) on both grids: an
+    inactive slot, an active slot of pad ids only, candidates above the
+    last candidate block and at block maxes, holes in valid, E = 0 (bp) and
+    FastPFOR exceptions."""
+    case, rows = fold_fused_case(20 + MODES.index(mode), mode, codec, c_pad=8)
+    want = _packed_fold_on_card(cuda, case, mode, rows)
+    last = case["maxes"][0, 0].astype(np.int64)[case["blk"][0, 0, 3]]
+    above = case["r"][0] != SENT
+    above &= case["r"][0].astype(np.int64) > last
+    assert above.any() and not want[0][above].any()
+
+
+@pytest.mark.parametrize("c_pad,rows,ceiling", [(64, 32, False),
+                                                (256, 8, True),
+                                                (2048, 8, False)])
+def test_packed_fold_fused_large_c_matches_plain(cuda, c_pad, rows, ceiling):
+    """C = 64 … 2048 slots, half of them pads, 32- and 8-row blocks, and
+    family-ceiling pads."""
+    case, rows = fold_fused_case(c_pad + rows, "d1", "fastpfor", c_pad,
+                                 rows=rows, ceiling=ceiling)
+    _packed_fold_on_card(cuda, case, "d1", rows)
+
+
+def test_packed_fold_is_one_kernel_and_a_copy_in_a_graph(cuda):
+    """A K5 call, captured in a CUDA graph, enqueues the seed copy of valid
+    and one kernel, its own: neither the window decode
+    (packed_decode_kernel) nor K4's fold_kernel."""
+    case, rows = fold_fused_case(6, "d1", "fastpfor", c_pad=64)
+    args = [_tb(case[k], cuda) for k in FOLD_ORDER]
+    nodes = graph_ops(lambda: ops.intersect_packed_fold(
+        args[0], args[1], tuple(args[2:9]), args[9], mode="d1",
+        block_rows=rows))
+    assert sorted(k for k, _ in nodes) == ["KERNEL", "MEMCPY"], nodes
+    assert "packed_fold_kernel" in next(t for k, t in nodes
+                                        if k == "KERNEL"), nodes
+
+
+def test_packed_kernels_do_not_spill(cuda):
+    """K3's and K5's kernels, read by cuobjdump: every mode present, no
+    stack frame, no local memory."""
+    import re
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    _build.build_all()
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    for stem, kernel in (("packed_gallop", "packed_gallop_kernel"),
+                         ("packed_fold", "packed_fold_kernel")):
+        dump = subprocess.run(
+            [str(tool), "--dump-resource-usage", str(_build.lib_path(stem))],
+            capture_output=True, text=True, check=True).stdout
+        rows = re.findall(rf"Function \S*{kernel}\S*:\s*\n\s*REG:(\d+) "
+                          rf"STACK:(\d+) .*LOCAL:(\d+)", dump)
+        assert len(rows) == len(MODES), dump[:2000]
+        assert all(int(st) == 0 and int(lo) == 0 for _, st, lo in rows), rows
+
+
+def test_fold_pack_flash_lean_path_refuse_bad_operands(cuda):
+    """K4's, K5's, K6's and K8's wrappers raise on mixed devices and on
+    dtype, rank and contiguity, and launch nothing; CPU tensors take the
+    plain versions and count no launch."""
+    from repro_torch.kernels import bitpack_pack
+    from repro_torch.kernels import flash_attention as tfa
+    before = ops.launches()
+    r, valid, folds, act = (_tb(a, cuda) for a in fold_case(1, 2, 256, 512, 2))
+    for i, bad in [(0, r.cpu()), (1, valid.cpu()), (2, folds.cpu()),
+                   (3, act.cpu()), (0, r.long()), (2, folds[:, :, ::2]),
+                   (3, act.int())]:
+        args = [r, valid, folds, act]
+        args[i] = bad
+        with pytest.raises(ValueError):
+            tmk.decoded_fold_batched(*args)
+    case, rows = fold_fused_case(3, "d1", "bp", c_pad=8)
+    pk = [_tb(case[k], cuda) for k in FOLD_ORDER]
+    for i, bad in [(0, pk[0].cpu()), (1, pk[1].int()), (2, pk[2][0]),
+                   (4, pk[4].cpu()), (6, pk[6][:, :1]),
+                   (9, pk[9].cpu())]:
+        args = list(pk)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            tmk.packed_fold_batched(*args, mode="d1", block_rows=rows)
+    with pytest.raises(ValueError):
+        tmk.packed_fold_batched(*pk, mode="d1", block_rows=33)
+    d = torch.zeros((2, 32, 128), dtype=torch.int32, device=cuda)
+    w = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for bad in [(d, w.cpu()), (d.cpu(), w), (d.long(), w), (d[:, :16], w),
+                (d, w[:1])]:
+        with pytest.raises(ValueError):
+            bitpack_pack.pack_blocks_padded(*bad)
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda)
+    for bad in [(q, q.cpu(), q), (q.cpu(), q, q), (q, q, q.float())]:
+        with pytest.raises(ValueError):
+            tfa.flash_attention(*bad)
+    assert ops.launches() == before
+    cpu = [_tb(case[k]) for k in FOLD_ORDER]
+    assert torch.equal(tmk.packed_fold_batched(*cpu, mode="d1",
+                                               block_rows=rows),
+                       tmk.packed_fold_plain(*cpu, mode="d1",
+                                             block_rows=rows))
+    tmk.decoded_fold_batched(r.cpu(), valid.cpu(), folds.cpu(), act.cpu())
+    bitpack_pack.pack_blocks_padded(d.cpu(), w.cpu())
+    tfa.flash_attention(q.cpu().float(), q.cpu().float(), q.cpu().float())
+    assert ops.launches() == before
 
 
 def test_batched_engine_on_the_card_matches_the_cpu(cuda):
@@ -744,7 +942,8 @@ def test_flash_attention_routes_match_plain_and_simt(cuda, case):
     routes[route] += 1
     assert ops.flash_routes() == routes
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    simt = tfa._launch(q, k, v, route="simt", causal=causal, kv_len=kv_len)
+    simt = tfa._launch(q, k, v, q.get_device(), route="simt", causal=causal,
+                       kv_len=kv_len)
     for other in (want, simt):
         allow = tfa.bf16_allowance(other, v, rounded_p=route == "tc")
         assert bool(((got.float() - other.float()).abs() <= allow).all())

@@ -12,7 +12,10 @@ reference (the Pallas kernels in interpret mode, or its jnp functions).
   zeroed tile first; looks up the candidates it owns, hi(c−1) < x ≤ hi(c),
   with the branchless lower bound in the tile; and, before the decode,
   writes false over its chunk of the tail [u, M).  The emulation counts
-  the writers of every out[b, i]: each must have exactly one.
+  the writers of every out[b, i]: each must have exactly one.  The warp
+  body is ``_warp_emulation.packed_slot``, which K5's emulation
+  (tests/test_torch_fold_hopper.py) shares, as the kernels share
+  ``csrc/packed_warp.cuh``.
 - ``k7_warp`` is K7's (csrc/svb_decode.cu): a warp a block, lane t owning
   values 4t…4t+3 of each row; lane t reads control byte t, scans the
   four byte lengths' sum across the warp (the row total carries to the next
@@ -45,15 +48,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import intersect_gallop as tkg
 from repro_torch.kernels import svb_decode as tkd
 
-from _warp_emulation import prefix_row, shfl_up_scan, unpack4, warp_partition
+from _warp_emulation import (I32_MAX, U32, i32 as _i32, packed_slot,
+                             prefix_row, shfl_up_scan)
 from test_torch_cuda import PACKED_ORDER, fused_case as k3_case
 
 pytestmark = pytest.mark.torch_port
 
 MODES = ["none", "d1", "d2", "d4", "dm", "dv"]
-SENT = 2**31 - 1
-I32_MIN, I32_MAX = -2**31, 2**31 - 1
-U32 = 0xFFFFFFFF
 CSRC = Path(tkd.__file__).resolve().parent / "csrc"
 
 
@@ -68,47 +69,17 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
 
 
-def _i32(a) -> np.ndarray:
-    """uint32 or int64 values as the int32 they are, held in int64."""
-    a = np.asarray(a, np.int64) & U32
-    return np.where(a >= 2**31, a - 2**32, a)
-
-
 # --------------------------------------------------------------------------
 # K3: one launch, a warp per candidate slot
 # --------------------------------------------------------------------------
 
-def _decode_tile(words, offset: int, b: int, seed, rows: int, mode: str,
-                 patch) -> np.ndarray:
-    """``decode_staged_block`` into a warp's tile: (rows, 128) uint32;
-    ``patch`` (rows, 128) deltas added before the prefix sum, or None."""
-    if not 0 <= b <= 32:
-        raise ValueError("the emulation covers the staged widths 0–32")
-    T = words.shape[0]
-    stage = words[np.clip(offset + np.arange((rows * b + 31) >> 5), 0, T - 1)]
-    cols = np.arange(128)
-    c = np.full((32, 4), seed, np.uint32)
-    out = np.zeros((rows, 128), np.uint32)
-    for r in range(rows):
-        t = unpack4(stage, b, r, cols)
-        if patch is not None:
-            t = t + patch[r].reshape(32, 4)
-        v, step = prefix_row(t, c, mode)
-        c = c + step
-        out[r] = v.reshape(128)
-    return out
-
-
 def k3_fused(r, words, widths, offsets, maxes, blk, exc_pos, exc_add,
              mode: str, rows: int, *, mutation: str | None = None):
     """K3's grid on numpy operands → (out (B, M) bool, writers (B, M): how
-    many warps wrote each entry).  ``mutation``: "range_off_by_one" finds
-    the owned ranges with lower bounds (x = hi(c) goes to slot c + 1),
-    "pad_writes" lets every pad slot write false over its row."""
+    many warps wrote each entry).  Each warp runs ``packed_slot``; K3's
+    epilogue writes the members over the owned range and false over the
+    tail chunk.  ``mutation`` goes to ``packed_slot``."""
     B, M = r.shape
-    C, Kp, E = blk.shape[1], widths.shape[1], exc_pos.shape[1]
-    per = rows * 128
-    rounds = (per - 1).bit_length()
     out = np.zeros((B, M), bool)
     writers = np.zeros((B, M), np.int64)
 
@@ -117,57 +88,17 @@ def k3_fused(r, words, widths, offsets, maxes, blk, exc_pos, exc_add,
         writers[b, lo:hi] += 1
 
     for b in range(B):
-        rb = r[b].astype(np.int64)
-        mx = _i32(maxes[b])
-        ids = blk[b].astype(np.int64)
-        real = (ids >= 0) & (ids < Kp)
-        for c in range(C):
-            if not real[c]:
-                if c == 0 or mutation == "pad_writes":
-                    write(b, 0, M, False)
+        for c in range(blk.shape[1]):
+            w = packed_slot(r[b], words[b], widths[b], offsets[b], maxes[b],
+                            blk[b], exc_pos[b], exc_add[b], c, mode, rows,
+                            mutation=mutation)
+            if w is None:
                 continue
-            bid = int(ids[c])
-            L = warp_partition(C, lambda j: real[j])
-            assert L == (C if real.all() else int(np.argmin(real)))
-            last = max(L, 1) - 1
-            keys = [mx[ids[c - 1]] if c > 0 else I32_MIN, mx[bid],
-                    mx[ids[last]] if real[last] else I32_MAX]
-            side = "left" if mutation == "range_off_by_one" else "right"
-            ub = [warp_partition(M, (lambda j, k=k: rb[j] < k)
-                                 if side == "left" else
-                                 (lambda j, k=k: rb[j] <= k)) for k in keys]
-            assert ub == [int(np.searchsorted(rb, k, side)) for k in keys]
-            s_lo, s_hi, u = (ub[0] if c > 0 else 0), ub[1], ub[2]
-            nl = max(L, 1)                 # the tail chunk, before the decode
-            share = ((M - u + nl - 1) // nl + 15) & ~15
-            a = u + c * share
-            write(b, min(a, M), min(a + share, M), False)
-            seed = np.uint32(maxes[b, bid - 1]) if bid > 0 else np.uint32(0)
-            patch = None
-            if E > 0:
-                ep = exc_pos[b].astype(np.int64)
-                lo_pos = bid * per
-                f0, f1 = (warp_partition(E, lambda j, k=k: (ep[j] >= 0)
-                                         & (ep[j] < k))
-                          for k in (lo_pos, lo_pos + per))
-                if f1 > f0:
-                    patch = np.zeros(per, np.uint32)
-                    np.add.at(patch, ep[f0:f1] - lo_pos,
-                              exc_add[b, f0:f1].astype(np.uint32))
-                    patch = patch.reshape(rows, 128)
-            tile = _i32(_decode_tile(words[b], int(offsets[b, bid]),
-                                     int(widths[b, bid]), seed, rows, mode,
-                                     patch).reshape(-1))
-            if s_hi > s_lo:               # lanes 32 at a time, independent
-                x = rb[s_lo:s_hi]
-                lo = np.full(x.shape, -1, np.int64)
-                for k in range(rounds - 1, -1, -1):
-                    probe = lo + (1 << k)
-                    lo = np.where((probe < per)
-                                  & (tile[np.minimum(probe, per - 1)] < x),
-                                  probe, lo)
-                write(b, s_lo, s_hi,
-                      (tile[np.minimum(lo + 1, per - 1)] == x) & (x != SENT))
+            if w.clear_row:
+                write(b, 0, M, False)
+                continue
+            write(b, w.a, w.e, False)
+            write(b, w.lo, w.hi, w.member)
     return out, writers
 
 
