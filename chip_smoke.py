@@ -135,6 +135,14 @@ CELLS = tuple((codec, wname, B, regimes)
     ("streamvbyte-d1", "B16", 16, ("default",)),
     ("auto", "B16", 16, ("default",)))
 LONGEST_LISTS = 4              # lists of the K6 pack pass
+# phase 3c: the device-resident index, pipelined and sharded serving, on
+# these builds of CELLS; the pool's capacity (4 GiB of ints) holds their
+# working set, arenas included, so the timed passes rebuild no arena
+RESIDENT_BUILDS = (("fastpfor-d1", "B16"), ("fastpfor-d1", "B0"),
+                   ("streamvbyte-d1", "B16"))
+RESIDENT_CAPACITY = 1 << 30
+DEPTHS = (1, 2)
+SHARDS = 2
 SENT = 2**31 - 1
 REPLACES = {
     "unpack_blocks": ("src/repro_torch/kernels/csrc/unpack_blocks.cu",
@@ -1061,7 +1069,164 @@ def serve_regime(idx, what, corpus, truth, regime, plan) -> tuple:
         f"{bpasses} passes " + ", ".join(
             f"{k} {v} ({v / (n * bpasses):.3f}/query)"
             for k, v in bcounts.items() if v))
-    return counts, bcounts, t_seq, time.perf_counter() - t0
+    return (counts, bcounts, t_seq, time.perf_counter() - t0,
+            rep["results"], n / bdt)
+
+
+def _check_same(what, results, seq, truth, corpus) -> None:
+    """Answers equal to brute force and to the sequential engine's."""
+    _check_answers(what, results, truth, corpus)
+    for q, a, b in zip(corpus.queries, results, seq):
+        if a.count != b.count or not np.array_equal(a.docs, b.docs):
+            raise AssertionError(f"{what}: answer to {q} differs from the "
+                                 f"sequential one")
+
+
+def resident_paths(dev, idx, what, corpus, truth, seq, batched_qps) -> dict:
+    """Phase 3c on one build: a ResidentPool warmed on the card, then
+    ``execute_pipelined`` at each of ``DEPTHS``, the sequential engine and
+    the batched engine at 32 (fused, after ``batch.warmup``) with that
+    pool, and ``execute_sharded`` over ``SHARDS`` shards (one per part) at
+    depth 2, each with the launch counts set to 0 just before it and read
+    just after (warm passes included), every answer against brute force
+    and the sequential answers ``seq``; then depths 1 and 2 in turns
+    (``in_turns``) and one depth-2 pass under torch.profiler.
+    ``batched_qps`` is phase 3b's default batched pass of this build.
+    Returns the launch counts by path."""
+    from repro_torch.core import bitpack, codecs as codec_lib
+    from repro_torch.index import pipeline as pipe_lib
+    from repro_torch.index import shard as shard_lib, source
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    n = len(corpus.queries)
+    fams = {codec_lib.family_of(tp.payload) for p in idx.parts
+            for tp in p.terms.values() if tp.kind == "list"
+            and not (bitpack.skip_capable(tp.payload) and tp.skip_ok
+                     and tp.payload.widths.shape[0]
+                     >= source.SKIP_MIN_BLOCKS)}
+    counts = {}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    pool = source.ResidentPool(capacity_ints=RESIDENT_CAPACITY, device=dev)
+    ps = pool.warm(idx)
+    torch.cuda.synchronize()
+    counts["warm"] = ops.launches()
+    log(f"{what}/resident: warm staged {ps['staged_lists']} lists "
+        f"({ps['staged_ints']} ints) in {time.perf_counter() - t0:.2f} s; "
+        f"lists it decodes: {sorted(fams) or 'none'}; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts["warm"].items() if v))
+    for kernel, need in (("unpack_blocks", {"bp", "bp8", "fastpfor"}),
+                         ("unpack_svb_blocks", {"streamvbyte"})):
+        if fams & need and counts["warm"][kernel] == 0:
+            raise AssertionError(f"{what}: {kernel} never ran during warm, "
+                                 f"which decodes {sorted(fams & need)} lists")
+
+    def path(name, run):
+        ops.reset_launches()
+        rep = run()
+        torch.cuda.synchronize()
+        counts[name] = ops.launches()
+        _check_same(f"{what}/{name}", rep["results"], seq, truth, corpus)
+        return rep
+
+    # the pipelined passes first, on the pool as warm leaves it: a list
+    # that any pass decodes (a seed, or a fold under the skip ratio) stays
+    # resident and is served decoded from then on, so K5 is left only the
+    # long lists that no pass decodes
+    reps = {}
+    for d in DEPTHS:
+        reps[f"depth {d}"] = path(f"depth {d}", lambda d=d: (
+            serve.serve_batched(idx, corpus.queries, batch=BATCH, pool=pool,
+                                depth=d)))
+    reps["sequential"] = path("sequential", lambda: serve.serve_queries(
+        idx, corpus.queries, pool=pool))
+    reps["batched"] = path("batched", lambda: serve.serve_batched(
+        idx, corpus.queries, batch=BATCH, warmup=True, pool=pool))
+    t1 = time.perf_counter()
+    sharded = shard_lib.shard_index(idx, SHARDS,
+                                    capacity_ints=RESIDENT_CAPACITY)
+    st = sharded.stats()
+    log(f"{what}/sharded: {SHARDS} shards on {st['n_devices']} device(s), "
+        f"warmed in {time.perf_counter() - t1:.2f} s; placement " + "; ".join(
+            f"shard {sh['shard']} -> {sh['device']}: parts {sh['parts']}, "
+            f"{sh['resident_lists']} lists, {sh['device_ints']} device ints"
+            for sh in st["shards"]))
+    reps["sharded"] = path("sharded", lambda: serve.serve_sharded(
+        sharded, corpus.queries, batch=BATCH, depth=2))
+    for name, rep in reps.items():
+        line = (f"{what}/resident {name}: {n} queries all equal to brute "
+                f"force and to the sequential answers; "
+                f"{n / rep['seconds']:.2f} q/s (phase 3b batched "
+                f"{batched_qps:.2f}), "
+                f"{rep['stats'].get('resident_hits', 0)} resident hits, "
+                f"{rep['stats'].get('decoded_ints', 0) / n:.0f} decoded "
+                f"ints/query, {rep['stats'].get('n_dispatches', 0)} "
+                f"dispatches, {rep['stats'].get('n_compiles', 0)} compiles "
+                f"in the timed pass")
+        if rep.get("timings") is not None:
+            line += f"; stages {rep['timings'].as_dict()}"
+        log(line + "; launches " + ", ".join(
+            f"{k} {v}" for k, v in counts[name].items() if v))
+    ps = pool.stats()
+    log(f"{what}/resident pool: {ps['resident_lists']} lists, "
+        f"{ps['device_ints']} device ints of {RESIDENT_CAPACITY} "
+        f"({ps['arena_ints']} in {ps['arenas']} arenas), "
+        f"{ps['evicted_lists']} evicted, {ps['hits']} hits, {ps['misses']} "
+        f"misses")
+    in_turns(idx, what, pool, corpus, truth, seq)
+    profile_report(f"{what}/resident depth 2", lambda: pipe_lib.execute_pipelined(
+        idx, corpus.queries, batch_size=BATCH, depth=2, pool=pool),
+        f"{n} queries")
+    del sharded, pool
+    return counts
+
+
+def in_turns(idx, what, pool, corpus, truth, seq) -> None:
+    """Depths 1 and 2 on the warm pool in turns (1, 2, 2, 1, twice): q/s of
+    each pass, its stages, and its ``block`` split into the wait for the
+    card (the result copies' events) and the host's aggregation after it.
+    Fatal if a pass rebuilds an arena where the pool evicted nothing."""
+    from repro_torch.index import batch as batch_lib
+    from repro_torch.index import pipeline as pipe_lib
+    n = len(corpus.queries)
+    collect, waits = batch_lib.collect_batch, []
+
+    def collect_timed(pending):
+        t = time.perf_counter()
+        for _, _, copies in pending.launched:
+            for _, event in copies:
+                if event is not None:
+                    event.synchronize()
+        waits.append(time.perf_counter() - t)
+        return collect(pending)
+
+    builds, turns = pool.arena_builds(), {1: [], 2: []}
+    batch_lib.collect_batch = collect_timed
+    try:
+        for d in (1, 2, 2, 1, 1, 2, 2, 1):
+            tm = pipe_lib.StageTimings()
+            waits.clear()
+            t0 = time.perf_counter()
+            out = pipe_lib.execute_pipelined(idx, corpus.queries,
+                                             batch_size=BATCH, depth=d,
+                                             pool=pool, timings=tm)
+            dt = time.perf_counter() - t0
+            _check_same(f"{what}/depth {d} in turns", out, seq, truth, corpus)
+            turns[d].append((n / dt, tm, sum(waits)))
+    finally:
+        batch_lib.collect_batch = collect
+    for d, runs in turns.items():
+        log(f"{what}/resident depth {d} in turns: q/s "
+            + ", ".join(f"{q:.2f}" for q, _, _ in runs) + "; ms stage / "
+            "assemble / dispatch / block (wait for the card + host "
+            "aggregation) " + "; ".join(
+                f"{tm.stage * 1e3:.2f} / {tm.assemble * 1e3:.2f} / "
+                f"{tm.dispatch * 1e3:.2f} / {tm.block * 1e3:.2f} "
+                f"({w * 1e3:.2f} + {(tm.block - w) * 1e3:.2f})"
+                for _, tm, w in runs))
+    if pool.stats()["evicted_lists"] == 0 and pool.arena_builds() != builds:
+        raise AssertionError(f"{what}: a warm pipelined pass rebuilt an "
+                             f"arena")
 
 
 def run_main_path(dev, corpus, truth) -> dict:
@@ -1074,6 +1239,7 @@ def run_main_path(dev, corpus, truth) -> dict:
     seconds = {"build": 0.0, "sequential": 0.0, "batched": 0.0,
                "profile": 0.0}
     longest = None
+    resident = {}
     for codec, wname, B, regimes in CELLS:
         t0 = time.perf_counter()
         idx = builder.build(corpus.postings, corpus.n_docs,
@@ -1087,7 +1253,7 @@ def run_main_path(dev, corpus, truth) -> dict:
             f"lists {st['codec_counts']}")
         plan = batch_lib.FusionPlan()    # one serving session per build
         for regime in regimes:
-            counts, bcounts, t_seq, t_bat = serve_regime(
+            counts, bcounts, t_seq, t_bat, seq, bqps = serve_regime(
                 idx, f"{codec}/{wname}/{regime}", corpus, truth, regime, plan)
             seconds["sequential"] += t_seq
             seconds["batched"] += t_bat
@@ -1095,6 +1261,15 @@ def run_main_path(dev, corpus, truth) -> dict:
                 per_regime[(codec, wname, regime, path)] = c
                 for k, v in c.items():
                     totals[k] += v
+            if regime == "default" and (codec, wname) in RESIDENT_BUILDS:
+                t0 = time.perf_counter()
+                resident[(codec, wname)] = resident_paths(
+                    dev, idx, f"{codec}/{wname}", corpus, truth, seq, bqps)
+                seconds["resident"] = (seconds.get("resident", 0.0)
+                                       + time.perf_counter() - t0)
+                for c in resident[(codec, wname)].values():
+                    for k, v in c.items():
+                        totals[k] += v
         if wname == "B16":
             t0 = time.perf_counter()
             profile_pass(idx, corpus.queries, codec)
@@ -1123,6 +1298,20 @@ def run_main_path(dev, corpus, truth) -> dict:
                for c in ("fastpfor-d1", "bp-d1")) == 0:
             raise AssertionError(f"K4 never ran in the {regime}/batched "
                                  f"regime")
+    for (codec, wname), c in resident.items():
+        pooled = [v for k, v in c.items() if k not in ("warm", "sequential")]
+        if sum(v["decoded_fold_batched"] for v in pooled) == 0:
+            raise AssertionError(f"K4 never ran in {codec}/{wname}'s "
+                                 f"resident, pipelined or sharded passes")
+        # at this size warm decodes no fastpfor list (each is over 4 blocks
+        # and skip-served), so K1 decodes them on the pool's misses
+        if codec == "fastpfor-d1" and sum(
+                v["unpack_blocks"] for v in pooled) == 0:
+            raise AssertionError(f"K1 never ran on {codec}/{wname}'s pool "
+                                 f"misses")
+    if sum(resident[("fastpfor-d1", "B0")][f"depth {d}"]
+           ["packed_fold_batched"] for d in DEPTHS) == 0:
+        raise AssertionError("K5 never ran in fastpfor-d1/B0 pipelined")
     if sum(v["unpack_blocks"] for k, v in per_regime.items()
            if k[0] == "bp-d1") == 0:
         raise AssertionError("K1 never ran in the bp-d1 build")
@@ -1606,6 +1795,12 @@ def main(argv=None) -> int:
         if alt["hits"] != seq["hits"]:
             raise AssertionError(f"serve --codec {codec} gave other hits "
                                  f"than the fastpfor serve")
+    for flags in (["--resident"], ["--pipeline", "2"], ["--shards", "2"]):
+        alt = serve.main(["--queries", "8", "--cache", "--shared-vocab",
+                          *flags])
+        if alt["hits"] != seq["hits"]:
+            raise AssertionError(f"serve {' '.join(flags)} gave other hits "
+                                 f"than the sequential serve")
     lm = serve.main(["--arch", LM_ARCH, "--tokens", "4"])
     if tuple(lm["tokens"].shape) != (4, 4):
         raise AssertionError(f"serve --arch {LM_ARCH} gave tokens of shape "

@@ -7,9 +7,12 @@ bit-packed like a BP block and each exception stores its position and its
 high bits, pre-shifted by b'.
 
 Decode = unpack base → patch (add high<<b' at exception positions) → prefix
-sum.  The patch must precede the prefix sum.  As in the reference this is
-plain tensor code on every device (the reference's is jnp outside Pallas);
-the skip path decodes FastPFOR blocks inside the packed-gallop kernel.
+sum.  The patch must precede the prefix sum, so the unpack runs alone
+through K1's wrapper in mode "none" (``kernels.bitunpack.unpack_blocks``:
+the kernel on the card, its plain version on the CPU) and the patch and
+prefix sum are tensor code, as the reference's decode is jnp outside
+Pallas.  The skip path decodes FastPFOR blocks inside the packed-gallop
+kernel.
 """
 
 from __future__ import annotations
@@ -136,11 +139,14 @@ def encode(values: np.ndarray, mode: str = "d1",
 
 def decode_device(flat_words, widths, offsets, seeds, exc_pos, exc_add,
                   mode: str, block_rows: int) -> torch.Tensor:
-    """unpack → patch → prefix sum.  Returns (K, R, 128) int32 bit patterns.
-    Positions outside [0, K·R·128) drop, as the reference's ``mode="drop"``."""
-    d = bitpack.unpack_deltas(flat_words, widths, offsets, block_rows)
+    """unpack (K1, mode "none") → patch → prefix sum.  Returns (K, R, 128)
+    int32 bit patterns.  Positions outside [0, K·R·128) drop, as the
+    reference's ``mode="drop"``."""
+    from repro_torch.kernels import bitunpack
+    d = bitunpack.unpack_blocks(flat_words, offsets, widths, seeds, "none",
+                                block_rows)
     K = widths.shape[0]
-    dflat = d.reshape(-1)
+    dflat = to_u32(d).reshape(-1)
     pos = exc_pos.to(torch.int64)
     ok = (pos >= 0) & (pos < dflat.shape[0])
     # dropped entries add 0 at position 0: a boolean index would read the

@@ -1,41 +1,46 @@
 """Batched query execution: shape-bucketed scheduling and SvS on the card.
 
-Port of ``src/repro/index/batch.py``, its host-assembled (no
-``ResidentPool``), single-device path, with the reference's
-``backend="pallas"`` program:
+Port of ``src/repro/index/batch.py`` with the reference's
+``backend="pallas"`` program, without a pool and with a ``ResidentPool``:
 
   1. **Schedule.** Every (query, index-part) work item gets a shape
      signature (``GroupKey``): pow2 bucket of the seed list M, of the longest
      decoded fold N, bitmap word count W, the ratio algorithm, and the
      packed block layout of its long skip-capable folds (k/t/c/e pads, block
      rows, delta mode).  Terms resolve through ``index.source``: short lists
-     decode on the card (and cache), long skip-capable lists stay packed with
-     their candidate block ids searched on the host.  The seeds' values
-     cross to the host once per batch, all together, for that search.
+     decode on the card (and cache, or stage in the pool), long skip-capable
+     lists stay packed with their candidate block ids searched on the host.
+     Pool entries carry their host copy, so the seeds' values are read
+     there; only seeds without one (no pool, cache hits) cross to the host,
+     all together in one copy per batch.
   2. **Fuse.** ``fuse_groups`` coarsens keys into families — (kind, packed
      block geometry) — at family-ceiling buckets, kept monotone across
      batches by a sticky ``FusionPlan``, so a batch launches O(#families)
      programs.
-  3. **Execute.** Each group chunk's operands are stacked on the card: seed
-     rows into a SENTINEL-filled (Bp, M) tensor, decoded folds into a
-     SENTINEL-filled (J, Bp, N) stack, packed folds into zero-extended
-     (Jp, Bp, ...) stacks from the memoized device layouts
-     (``source.cached_layout_dev``), bitmaps into an all-ones (Jb, Bp, W)
-     stack.  Only the candidate block ids and the active flags cross to the
-     card, without waiting for it.  The program ANDs K4 (decoded folds,
-     ``ops.intersect_fold_batch``), K5 (packed folds,
+  3. **Execute.** Each group chunk's operands are assembled on the card.
+     Without a pool: seed rows into a SENTINEL-filled (Bp, M) tensor,
+     decoded folds into a SENTINEL-filled (J, Bp, N) stack, packed folds
+     into zero-extended (Jp, Bp, ...) stacks from the memoized device
+     layouts (``source.cached_layout_dev``), bitmaps into an all-ones
+     (Jb, Bp, W) stack.  With a pool each operand is one ``index_select``
+     gather from a ``source.RowArena`` (the reference's ``_GATHER``), or,
+     for sources without a host copy, a stack of the pool's padded rows.
+     Only block ids, gather ids and active flags cross to the card, from
+     pinned memory without waiting for it.  The program ANDs K4 (decoded
+     folds, ``ops.intersect_fold_batch``), K5 (packed folds,
      ``ops.intersect_packed_fold``) and the bitmap probes into one validity
      mask over the seed row; all-bitmap items AND their words and popcount
-     each row.  Nothing in ``launch_groups`` waits for the card: CUDA's
-     asynchronous launch gives the reference's launch/collect split.
-  4. **Aggregate.** ``collect_batch`` copies each chunk's result to the host
-     once (values and count of each row in one tensor) and re-assembles
-     per-query results in part order, byte-identical to ``engine.query``.
+     each row.  Right after its program, each chunk's result starts its
+     copy into pinned host memory and records a CUDA event: nothing in
+     ``schedule`` or ``launch_groups`` waits for the card.
+  4. **Aggregate.** ``collect_batch`` waits for each chunk's event alone
+     and re-assembles per-query results in part order, byte-identical to
+     ``engine.query``; shard-pad slots (None) are skipped.
 
-Invariants, as in the reference: a ``GroupKey`` describes shapes only;
-padding (SENTINEL rows, inactive fold slots, all-pad packed slots, all-ones
-probe rows) never contributes to a real row's result; results concatenate
-in part order.
+Invariants, as in the reference: a ``GroupKey`` describes shapes only
+(residency, arenas and sharding never change one); padding (SENTINEL rows,
+inactive fold slots, all-pad packed slots, all-ones probe rows) never
+contributes to a real row's result; results concatenate in part order.
 
 Program count.  The reference's ``_compile_count`` reads JAX's jit caches.
 The port compiles nothing per shape: its kernels are built once per process
@@ -45,12 +50,11 @@ in the process, plus the kernel libraries this process built
 (``kernels._build.BUILDS``).  A steady state after ``warmup`` reports 0
 exactly when it launches no shape and builds no library that warmup did not.
 
-Not ported here (ROADMAP): the pool and arena paths (``ResidentPool``,
-``_stack_packed_arena``, the pool branches of the assemblers), the
-interpret-mode occupancy guard (``PALLAS_MIN_OCCUPANCY``), the JAX-only
-candidate donation and row stackers, and the ``backend="jax"`` program: the
-port has no ``backend`` switch — the kernels run on the card and their plain
-versions on the CPU.
+Not ported (ROADMAP): the interpret-mode occupancy guard
+(``PALLAS_MIN_OCCUPANCY``, ``pallas_occupancy``, ``_effective_backend``) and
+the ``backend="jax"`` program, since the port has no ``backend`` switch (the
+kernels run on the card and their plain versions on the CPU); the JAX-only
+candidate donation and jitted row stackers.
 """
 
 from __future__ import annotations
@@ -102,10 +106,17 @@ class _Item:
     pi: int                            # index-part ordinal (aggregation order)
     doc_lo: int
     r: torch.Tensor | None = None      # (M,) seed values on the card
-    folds: list | None = None          # J × decoded (own pow2 length,) rows
-    psrc: list | None = None           # Jp × (device layout at the list's
-                                       # self pads, raw candidate block ids)
-    bm_words: list | None = None       # J_b × (W,) bitmap word rows
+    folds: list | None = None          # no pool: J × decoded (own pow2
+                                       # length,) rows; pool: J ×
+                                       # DecodedSource (padded at assembly)
+    psrc: list | None = None           # Jp × (layout, raw candidate block
+                                       # ids); layout: the device layout at
+                                       # the list's self pads (no pool) or
+                                       # the PackedSource (pool: arenas)
+    bm_words: list | None = None       # no pool: J_b × (W,) bitmap rows
+    bm_dev: list | None = None         # pool: J_b × (W,) resident rows
+    bm_keys: list | None = None        # pool: J_b × (pool key, host row)
+    rsrc: object = None                # pool: the seed DecodedSource
 
 
 def _bucket_rows(b: int) -> int:
@@ -117,45 +128,70 @@ def _bucket_rows(b: int) -> int:
 
 
 def _n_bitmaps(it: _Item) -> int:
-    return len(it.bm_words) if it.bm_words is not None else 0
+    return (len(it.bm_words) if it.bm_words is not None
+            else len(it.bm_dev) if it.bm_dev is not None else 0)
 
 
 def _seeds_to_host(seeds: list) -> list[np.ndarray]:
-    """The valid values of every seed, copied to the host in one transfer."""
-    if not seeds:
-        return []
-    flat = torch.cat([s.vals[: s.n] for s in seeds]).cpu().numpy()
-    return np.split(flat, np.cumsum([s.n for s in seeds])[:-1])
+    """The valid values of every seed: a source's host copy where it has
+    one; the rest copied to the host together, in one copy."""
+    missing = [s for s in seeds if s.vals_np is None]
+    flat = (torch.cat([s.vals[: s.n] for s in missing]).cpu().numpy()
+            if missing else None)
+    copied = iter(np.split(flat, np.cumsum([s.n for s in missing])[:-1])
+                  if missing else ())
+    return [s.vals_np[: s.n] if s.vals_np is not None else next(copied)
+            for s in seeds]
 
 
 def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
-             skip: bool = True, stats: dict | None = None
+             skip: bool = True, stats: dict | None = None,
+             pool: "source.ResidentPool | None" = None
              ) -> dict[GroupKey, list[_Item]]:
     """Bucket every (query, part) work item by shape signature.  Terms
-    resolve through the posting-source layer on the index's device; items
-    carry device tensors.  The seeds of items with packed folds come to the
-    host in one copy for the candidate block-id search."""
+    resolve through the posting-source layer on the index's device.  With a
+    ResidentPool items carry resident sources (and their host copies);
+    without one, device tensors.  ``pool`` may also be an object with
+    ``for_part(pi)`` (``shard.PartPools``: one pool per shard)."""
     codec = codec_lib.get_codec(index.codec_name)
-    work = []      # per item: (qi, pi, part, seed, dec, packed, bitmap rows)
+    pool_of = (pool.for_part if hasattr(pool, "for_part")
+               else (lambda pi: pool))
+    work = []      # per item: (qi, pi, part, pool, seed, dec, packed,
+    #                            bitmaps, W)
     for qi, term_ids in enumerate(queries):
         for pi, part in enumerate(index.parts):
+            ppool = pool_of(pi)
             tps = [part.terms[t] for t in term_ids]
             if any(tp.kind == "empty" for tp in tps):
                 continue
             pairs = sorted(((t, tp) for t, tp in zip(term_ids, tps)
                             if tp.kind == "list"), key=lambda p: p[1].n)
-            bm_words = [tp.payload for tp in tps if tp.kind == "bitmap"]
+            bm_pairs = [(t, tp) for t, tp in zip(term_ids, tps)
+                        if tp.kind == "bitmap"]
+            W = int(bm_pairs[0][1].payload.shape[0]) if bm_pairs else 0
+            bitmaps = None
+            if bm_pairs and ppool is not None:
+                # (key, host row) pairs: the arena assembler must not depend
+                # on store residency (a small pool evicts between schedule
+                # and assembly)
+                keys = [(("bm", part.uid, t), source.bitmap_host(tp))
+                        for t, tp in bm_pairs]
+                bitmaps = (keys, [ppool.stage_bitmap(k, w, dev=tp.payload)
+                                  for (k, w), (_, tp) in zip(keys, bm_pairs)])
+            elif bm_pairs:
+                bitmaps = [tp.payload for _, tp in bm_pairs]
             if not pairs:
-                work.append((qi, pi, part, None, None, None, bm_words))
+                work.append((qi, pi, part, ppool, None, None, None, bitmaps,
+                             W))
                 continue
             seed_t, seed_tp = pairs[0]
             seed = source.resolve(part, seed_t, seed_tp, codec, cache=cache,
-                                  r_count=None, stats=stats)
+                                  r_count=None, stats=stats, pool=ppool)
             dec, packed = [], []
             for t, tp in pairs[1:]:
                 src = source.resolve(part, t, tp, codec, cache=cache,
                                      r_count=seed_tp.n, skip=skip,
-                                     stats=stats)
+                                     stats=stats, pool=ppool)
                 (packed if isinstance(src, source.PackedSource)
                  else dec).append((t, tp, src))
             dec = [s for _, _, s in dec]
@@ -163,22 +199,31 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
             if packed:
                 # one block geometry per fold stack: keep the longest fold's
                 # (block_rows, mode) and decode the rare mismatch, uncached
+                # and unstaged (staged, it would win over the skip path);
+                # with a pool it takes its host copy, for the arenas
                 ref = max(packed, key=lambda p: p[2].n)[2]
                 for t, tp, s in packed:
                     if (s.block_rows, s.mode) == (ref.block_rows, ref.mode):
                         keep.append(s)
-                    else:
-                        dec.append(source.resolve(part, t, tp, codec,
-                                                  cache=None, skip=False,
-                                                  stats=stats))
-            work.append((qi, pi, part, seed, dec, keep, bm_words or None))
-    host = iter(_seeds_to_host([w[3] for w in work if w[5]]))
+                        continue
+                    d = source.resolve(part, t, tp, codec, cache=None,
+                                       skip=False, stats=stats)
+                    if ppool is not None:
+                        d.vals_np = d.vals.cpu().numpy()
+                    dec.append(d)
+            work.append((qi, pi, part, ppool, seed, dec, keep, bitmaps, W))
+    host = iter(_seeds_to_host([w[4] for w in work if w[6]]))
     groups: dict[GroupKey, list[_Item]] = defaultdict(list)
-    for qi, pi, part, seed, dec, keep, bm_words in work:
-        W = bm_words[0].shape[0] if bm_words else 0
+    for qi, pi, part, ppool, seed, dec, keep, bitmaps, W in work:
+        bm_words = bm_dev = bm_keys = None
+        if ppool is not None and bitmaps:
+            bm_keys, bm_dev = bitmaps
+        else:
+            bm_words = bitmaps
         if seed is None:
             key = GroupKey("bitmap", 0, 0, W, "-")
-            groups[key].append(_Item(qi, pi, part.doc_lo, bm_words=bm_words))
+            groups[key].append(_Item(qi, pi, part.doc_lo, bm_words=bm_words,
+                                     bm_dev=bm_dev, bm_keys=bm_keys))
             continue
         M = seed.vals.shape[0]
         psig = psrc = None
@@ -193,17 +238,23 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
             e_pad = its.pow2_bucket(e_max, floor=1) if e_max else 0
             psig = (k_pad, t_pad, c_pad, e_pad, keep[0].block_rows,
                     keep[0].mode)
-            psrc = [(source.cached_layout_dev(s, s.self_pads(), stats), b)
-                    for s, b in cand]
+            # the pool keeps the PackedSource (its layout rows go to the
+            # arenas at the launching key's pads); without one, the memoized
+            # device layout at the list's own pads
+            psrc = (cand if ppool is not None else
+                    [(source.cached_layout_dev(s, s.self_pads(), stats), b)
+                     for s, b in cand])
             # decoded_ints of packed folds is counted at launch, at the
             # launching key's c_pad (fusion may raise it)
             source._bump(stats, "skip_folds", len(psrc))
         N = max((s.vals.shape[0] for s in dec), default=128)
         algo = "tiled" if N / M <= BATCH_TILED_MAX_RATIO else "gallop"
         key = GroupKey("svs", M, N, W, algo, psig)
-        groups[key].append(_Item(qi, pi, part.doc_lo, r=seed.vals,
-                                 folds=[s.vals for s in dec], psrc=psrc,
-                                 bm_words=bm_words))
+        groups[key].append(_Item(
+            qi, pi, part.doc_lo, r=seed.vals,
+            folds=dec if ppool is not None else [s.vals for s in dec],
+            psrc=psrc, bm_words=bm_words, bm_dev=bm_dev, bm_keys=bm_keys,
+            rsrc=seed if ppool is not None else None))
     return groups
 
 
@@ -239,21 +290,20 @@ def _bitmap_and_program(words) -> torch.Tensor:
     return torch.cat([out, counts[:, None]], 1)
 
 
-def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device):
+def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device,
+                  jp: int | None = None):
     """Stack the items' packed layouts into (Jp, Bp, ...) operands on the
     card.  Each slot zero-extends its self-padded device layout into the
     key's pads (which fusion may have raised): pad blocks have width 0 and
     are never candidates.  Candidate block ids pad with the out-of-range
     id ``k_pad`` (all-SENTINEL decode); inactive slots stay all-pad and are
-    masked by the active flags.  Returns (pk, active): pk in K5's order
-    (the reference's ``_compose_pk`` order) — words, widths, offsets,
-    maxes, candidate block ids, exc_pos, exc_add."""
+    masked by the active flags.  Returns (six device stacks in a device
+    layout's order — words, widths, offsets, maxes, exc_pos, exc_add —,
+    host candidate block ids, host active flags)."""
     k_pad, t_pad, c_pad, e_pad, _, _ = key.packed
-    Jp = (key.fused[2] if key.fused
-          else max((len(it.psrc) for it in items), default=0))
+    Jp = (max((len(it.psrc) for it in items), default=0)
+          if jp is None else jp)
     z = dict(dtype=torch.int32, device=device)
-    # in the order of a device layout: words, widths, offsets, maxes,
-    # exc_pos, exc_add
     stacked = [torch.zeros((Jp, Bp, t_pad, 128), **z),
                torch.zeros((Jp, Bp, k_pad), **z),
                torch.zeros((Jp, Bp, k_pad), **z),
@@ -269,74 +319,237 @@ def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device):
                     dst[j, b, : src.shape[0]] = src
             PBk[j, b, : blk.shape[0]] = blk
             active[j, b] = True
-    pk = (*stacked[:4], its.to_device(PBk, device), *stacked[4:])
-    return pk, its.to_device(active, device)
+    return stacked, PBk, active
 
 
-def _assemble_svs(key: GroupKey, items: list[_Item]):
-    """Stack the operands of one svs group chunk on the card.  Rows narrower
-    than the key's buckets extend with SENTINEL / zero-word filler, inert by
-    the padding invariant; fused keys pin the arity ceilings."""
-    device = items[0].r.device
-    Bp = _bucket_rows(len(items))
-    if key.fused:
-        J, Jb, _ = key.fused
-    else:
-        J = max(len(it.folds) for it in items)
-        Jb = max(_n_bitmaps(it) for it in items)
-    R = torch.full((Bp, key.m_bucket), SENT, dtype=torch.int32, device=device)
-    F = torch.full((J, Bp, key.n_bucket), SENT, dtype=torch.int32,
-                   device=device)
-    active = np.zeros((J, Bp), dtype=bool)
+def _stack_packed_arena(key: GroupKey, items: list[_Item], Bp: int,
+                        pool: "source.ResidentPool", jp: int | None = None):
+    """Pool-mode packed stacking: each of the six layout operands is one
+    gather from its ``RowArena`` at the key's pads with one (Jp·Bp,) id
+    vector — slot 0 is the all-pad layout, so inactive grid positions
+    decode to SENTINEL as in ``_stack_packed``.  A list's rows join the
+    arenas the first time it is gathered, from its host layout at those
+    pads.  Returns what ``_stack_packed`` returns."""
+    k_pad, t_pad, c_pad, e_pad, _, _ = key.packed
+    pads = (k_pad, t_pad, e_pad)
+    Jp = (max((len(it.psrc) for it in items), default=0)
+          if jp is None else jp)
+    arenas = [pool.layout_arena(pads, o) for o in range(6)]
+    idx = np.zeros((Jp, Bp), np.int32)          # 0 = all-pad layout slot
+    PBk = np.full((Jp, Bp, c_pad), k_pad, np.int32)
+    active = np.zeros((Jp, Bp), bool)
     for b, it in enumerate(items):
-        R[b, : it.r.shape[0]] = it.r
-        for jj, fold in enumerate(it.folds):
-            F[jj, b, : fold.shape[0]] = fold
-            active[jj, b] = True
+        for j, (src, blk) in enumerate(it.psrc):
+            slot = arenas[0].slots.get(src.key)
+            if slot is None:
+                rows = source.layout_rows(source.cached_layout_np(src, pads))
+                for a, row in zip(arenas, rows):
+                    slot = a.slot(src.key, lambda r=row: r)
+            idx[j, b] = slot
+            PBk[j, b, : blk.shape[0]] = blk
+            active[j, b] = True
+    return [a.gather(idx) for a in arenas], PBk, active
+
+
+def _compose_pk(stacked, PBk: torch.Tensor) -> tuple:
+    """K5's operand order: words, widths, offsets, maxes, candidate block
+    ids, exc_pos, exc_add."""
+    return (*stacked[:4], PBk, *stacked[4:])
+
+
+def _arena_ok(items: list[_Item]) -> bool:
+    """Arena assembly needs a host copy and a pool key for every value row;
+    cache-hit sources carry neither, so groups holding one stack the pool's
+    padded rows instead."""
+    for it in items:
+        if it.rsrc is None or it.rsrc.vals_np is None or not it.rsrc.key:
+            return False
+        for f in it.folds:
+            if f.vals_np is None or not f.key:
+                return False
+    return True
+
+
+def _extend(row: np.ndarray, size: int, fill: int) -> np.ndarray:
+    """``row`` extended to ``size`` with ``fill``."""
+    if row.shape[0] == size:
+        return row
+    out = np.full(size, fill, row.dtype)
+    out[: row.shape[0]] = row
+    return out
+
+
+def _extend_dev(row: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    if row.shape[0] == size:
+        return row
+    out = torch.full((size,), fill, dtype=row.dtype, device=row.device)
+    out[: row.shape[0]] = row
+    return out
+
+
+def _assemble_svs(key: GroupKey, items: list[_Item], pool=None, *,
+                  bp: int | None = None, j: int | None = None,
+                  jb: int | None = None, jp: int | None = None,
+                  device=None):
+    """The operands of one svs group chunk on the card.  Without a pool they
+    are stacked from the items' device rows; with one, each is gathered
+    from the pool's arenas (or, for sources without a host copy, stacked
+    from the pool's padded rows).  Rows narrower than the key's buckets
+    extend with SENTINEL / zero-word filler, inert by the padding
+    invariant.  ``bp``/``j``/``jb``/``jp`` override the chunk-derived
+    paddings (the sharded launcher assembles uniform per-shard slices, some
+    of them empty, on ``device``); fused keys pin the arity ceilings.
+    Returns (R, F, host active flags, packed parts or None, W or None, Bp,
+    J, Jb)."""
+    B = len(items)
+    kj, kjb, kjp = key.fused if key.fused else (None, None, None)
+    Bp = _bucket_rows(B) if bp is None else bp
+    j = kj if j is None else j
+    jb = kjb if jb is None else jb
+    jp = kjp if jp is None else jp
+    J = max((len(it.folds) for it in items), default=0) if j is None else j
+    Jb = (max((_n_bitmaps(it) for it in items), default=0)
+          if jb is None else jb)
+    if device is None:
+        device = pool.device if pool is not None else items[0].r.device
+    M, N, Wd = key.m_bucket, key.n_bucket, key.words
+    active = np.zeros((J, Bp), dtype=bool)
     W = None
-    if Jb:
-        # inactive slots are all-ones rows, the probe identity; the zero
-        # extension past a real row's own W is never probed
-        W = torch.full((Jb, Bp, key.words), -1, dtype=torch.int32,
-                       device=device)
+    if pool is not None and _arena_ok(items):
+        fa_m = pool.fold_arena(M)
+        ridx = np.zeros(Bp, np.int32)               # 0 = SENTINEL row
         for b, it in enumerate(items):
-            for jj, w in enumerate(it.bm_words or ()):
-                W[jj, b, : w.shape[0]] = w
-                W[jj, b, w.shape[0]:] = 0
-    pkparts = (_stack_packed(key, items, Bp, device)
-               if key.packed is not None else None)
-    return (R, F, its.to_device(active, device), pkparts, W, Bp, J, Jb)
+            ridx[b] = fa_m.slot(it.rsrc.key, lambda s=it.rsrc: _extend(
+                s.vals_np, M, SENT))
+        R = fa_m.gather(ridx)
+        fidx = np.zeros((J, Bp), np.int32)
+        if J:
+            fa_n = pool.fold_arena(N)
+            for b, it in enumerate(items):
+                for jj, f in enumerate(it.folds):
+                    fidx[jj, b] = fa_n.slot(f.key, lambda s=f: _extend(
+                        s.vals_np, N, SENT))
+                    active[jj, b] = True
+            F = fa_n.gather(fidx)
+        else:
+            F = torch.zeros((0, Bp, N), dtype=torch.int32, device=device)
+        if Jb:
+            wa = pool.bitmap_arena(Wd)
+            widx = np.zeros((Jb, Bp), np.int32)     # 0 = probe identity
+            for b, it in enumerate(items):
+                for jj, (bk, wnp) in enumerate(it.bm_keys or ()):
+                    widx[jj, b] = wa.slot(bk, lambda w=wnp: _extend(w, Wd, 0))
+            W = wa.gather(widx)
+    elif pool is not None:
+        R = torch.stack([pool.padded(it.rsrc, M) for it in items]
+                        + [pool.sentinel_row(M)] * (Bp - B))
+        rows = []
+        for jj in range(J):
+            for b in range(Bp):
+                it = items[b] if b < B else None
+                if it is not None and jj < len(it.folds):
+                    rows.append(pool.padded(it.folds[jj], N))
+                    active[jj, b] = True
+                else:
+                    rows.append(pool.sentinel_row(N))
+        F = (torch.stack(rows).reshape(J, Bp, N) if J else
+             torch.zeros((0, Bp, N), dtype=torch.int32, device=device))
+        if Jb:
+            # inactive slots are all-ones rows, the probe identity
+            W = torch.stack([
+                _extend_dev(items[b].bm_dev[jj], Wd, 0)
+                if b < B and jj < _n_bitmaps(items[b])
+                else pool.ones_row(Wd)
+                for jj in range(Jb) for b in range(Bp)]).reshape(Jb, Bp, Wd)
+    else:
+        R = torch.full((Bp, M), SENT, dtype=torch.int32, device=device)
+        F = torch.full((J, Bp, N), SENT, dtype=torch.int32, device=device)
+        for b, it in enumerate(items):
+            R[b, : it.r.shape[0]] = it.r
+            for jj, fold in enumerate(it.folds):
+                F[jj, b, : fold.shape[0]] = fold
+                active[jj, b] = True
+        if Jb:
+            # inactive slots are all-ones rows, the probe identity; the
+            # zero extension past a real row's own W is never probed
+            W = torch.full((Jb, Bp, Wd), -1, dtype=torch.int32,
+                           device=device)
+            for b, it in enumerate(items):
+                for jj, w in enumerate(it.bm_words or ()):
+                    W[jj, b, : w.shape[0]] = w
+                    W[jj, b, w.shape[0]:] = 0
+    pkparts = None
+    if key.packed is not None:
+        pkparts = (_stack_packed_arena(key, items, Bp, pool, jp=jp)
+                   if pool is not None else
+                   _stack_packed(key, items, Bp, device, jp=jp))
+    return R, F, active, pkparts, W, Bp, J, Jb
 
 
-def _launch_svs_group(key: GroupKey, items: list[_Item],
-                      stats: dict | None) -> torch.Tensor:
-    R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items)
+def _svs_launch_args(key: GroupKey, items: list, pkparts, stats):
+    """(mode, block_rows, Jp) of a chunk's packed folds, counting the
+    decoded ints of its packed slots: every active slot decodes c_pad
+    blocks at the LAUNCHING key's bucket."""
+    if pkparts is None:
+        return "d1", 32, 0
+    rows, mode = key.packed[4], key.packed[5]
+    source._bump(stats, "decoded_ints",
+                 sum(len(it.psrc) for it in items if it is not None)
+                 * key.packed[2] * rows * 128)
+    return mode, rows, pkparts[2].shape[0]
+
+
+def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
+                      stats: dict | None, timings=None) -> torch.Tensor:
+    """Assemble and launch one svs chunk; ``timings`` (a
+    ``pipeline.StageTimings``) takes the assembly and the launch apart."""
+    t0 = time.perf_counter()
+    R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items, pool)
+    device = R.device
     pk = pk_active = None
-    mode, rows, Jp = "d1", 32, 0
+    mode, rows, Jp = _svs_launch_args(key, items, pkparts, stats)
     if pkparts is not None:
-        pk, pk_active = pkparts
-        Jp = pk[0].shape[0]
-        rows, mode = key.packed[4], key.packed[5]
-        # every active packed slot decodes c_pad blocks at the LAUNCHING
-        # key's bucket
-        source._bump(stats, "decoded_ints",
-                     sum(len(it.psrc) for it in items)
-                     * key.packed[2] * rows * 128)
+        stacked, PBk, pk_act = pkparts
+        pk = _compose_pk(stacked, its.to_device(PBk, device))
+        pk_active = its.to_device(pk_act, device)
+    active = its.to_device(active, device)
     if stats is not None:
         stats.setdefault("signatures", set()).add(("svs", key, Bp, J, Jb))
     _PROGRAMS.add(("svs", key, Bp, J, Jb, Jp))
-    return _svs_program(R, F, active, pk, pk_active, W, mode, rows)
+    t1 = time.perf_counter()
+    out = _svs_program(R, F, active, pk, pk_active, W, mode, rows)
+    if timings is not None:
+        timings.assemble += t1 - t0
+        timings.dispatch += time.perf_counter() - t1
+    return out
 
 
-def _assemble_bitmap(key: GroupKey, items: list[_Item]):
+def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
+                     bp: int | None = None, j: int | None = None,
+                     device=None):
     """(Bp, J, W) word stack of one all-bitmap chunk on the card: real rows
     pad missing terms with all-ones (the AND identity) over their own W;
-    padded rows, and every row past its own W, stay zero (popcount 0)."""
-    Bp = _bucket_rows(len(items))
-    J = (key.fused[0] if key.fused
-         else max(_n_bitmaps(it) for it in items))
-    device = items[0].bm_words[0].device
-    words = torch.zeros((Bp, J, key.words), dtype=torch.int32, device=device)
+    padded rows, and every row past its own W, stay zero (popcount 0).
+    With a pool it is one gather from the pool's bitmap arena (slot 0 all
+    ones, slot 1 all zero).  ``bp``/``j`` override the chunk-derived
+    paddings for sharded per-shard slices (on ``device``)."""
+    B = len(items)
+    Bp = _bucket_rows(B) if bp is None else bp
+    if j is None and key.fused:
+        j = key.fused[0]
+    J = max((_n_bitmaps(it) for it in items), default=1) if j is None else j
+    Wd = key.words
+    if pool is not None:
+        wa = pool.bitmap_arena(Wd)
+        widx = np.full((Bp, J), source.ResidentPool.BM_ONES_SLOT, np.int32)
+        widx[B:, :] = source.ResidentPool.BM_ZERO_SLOT
+        for b, it in enumerate(items):
+            for jj, (bk, wnp) in enumerate(it.bm_keys):
+                widx[b, jj] = wa.slot(bk, lambda w=wnp: _extend(w, Wd, 0))
+        return wa.gather(widx), Bp, J
+    if device is None:
+        device = items[0].bm_words[0].device
+    words = torch.zeros((Bp, J, Wd), dtype=torch.int32, device=device)
     for b, it in enumerate(items):
         wr = it.bm_words[0].shape[0]
         words[b, :, :wr] = -1
@@ -345,13 +558,19 @@ def _assemble_bitmap(key: GroupKey, items: list[_Item]):
     return words, Bp, J
 
 
-def _launch_bitmap_group(key: GroupKey, items: list[_Item],
-                         stats: dict | None) -> torch.Tensor:
-    words, Bp, J = _assemble_bitmap(key, items)
+def _launch_bitmap_group(key: GroupKey, items: list[_Item], pool,
+                         stats: dict | None, timings=None) -> torch.Tensor:
+    t0 = time.perf_counter()
+    words, Bp, J = _assemble_bitmap(key, items, pool)
     if stats is not None:
         stats.setdefault("signatures", set()).add(("bm", key, Bp, J))
     _PROGRAMS.add(("bm", key, Bp, J, 0, 0))
-    return _bitmap_and_program(words)
+    t1 = time.perf_counter()
+    out = _bitmap_and_program(words)
+    if timings is not None:
+        timings.assemble += t1 - t0
+        timings.dispatch += time.perf_counter() - t1
+    return out
 
 
 def _chunk_size(key: GroupKey, items: list[_Item],
@@ -500,18 +719,38 @@ def _compile_count() -> int:
 
 @dataclasses.dataclass
 class PendingBatch:
-    """Launched but not yet collected: one device result per group chunk."""
+    """Launched but not yet collected: per group chunk, its items (None in
+    shard-pad slots) and its result copies (see ``copy_to_host``)."""
     n_queries: int
     max_results: int
-    launched: list          # [(key, chunk_items, result on the card)]
+    launched: list          # [(key, chunk_items, [(host tensor, event)])]
+
+
+def copy_to_host(res: torch.Tensor) -> tuple:
+    """Start the copy of a result to the host.  On the card: into pinned
+    memory from torch's caching host allocator, without waiting, followed
+    by a CUDA event that ``collect_batch`` waits on alone; the pinned
+    tensor is held until then.  On the CPU: the tensor itself, and no
+    event."""
+    if res.device.type != "cuda":
+        return res, None
+    with torch.cuda.device(res.device):
+        host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+        host.copy_(res, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
 
 
 def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
                   max_results: int = 1 << 16,
                   max_group_size: int = MAX_GROUP_SIZE,
-                  stats: dict | None = None) -> PendingBatch:
-    """Launch one device program per (possibly fused) group chunk and return
-    without waiting for the card."""
+                  pool: "source.ResidentPool | None" = None,
+                  stats: dict | None = None, timings=None) -> PendingBatch:
+    """Launch one device program per (possibly fused) group chunk, each
+    followed by its result's copy to the host, and return without waiting
+    for the card.  ``timings`` (a ``pipeline.StageTimings``) takes operand
+    assembly and the launches apart."""
     launched = []
     n_dispatches = 0
     c0 = _compile_count() if stats is not None else 0
@@ -521,7 +760,8 @@ def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
             chunk = items[lo: lo + step]
             launch = (_launch_bitmap_group if key.kind == "bitmap"
                       else _launch_svs_group)
-            launched.append((key, chunk, launch(key, chunk, stats)))
+            res = launch(key, chunk, pool, stats, timings)
+            launched.append((key, chunk, [copy_to_host(res)]))
             n_dispatches += 1
     accumulate_launch_stats(stats, groups, n_dispatches)
     if stats is not None:
@@ -543,15 +783,21 @@ def accumulate_launch_stats(stats: dict | None, groups, n_dispatches: int):
 
 
 def collect_batch(pending: PendingBatch) -> list[QueryResult]:
-    """Copy each chunk's result to the host (one copy per chunk, which waits
-    for the card) and re-assemble per-query results in part order —
-    byte-identical to ``engine.query``."""
+    """Wait for each chunk's result copy (its event alone) and re-assemble
+    per-query results in part order — byte-identical to ``engine.query``.
+    Shard-pad slots (None) are skipped."""
     per_query: list[list[tuple[int, np.ndarray]]] = \
         [[] for _ in range(pending.n_queries)]
     counts = [0] * pending.n_queries
-    for key, chunk, res in pending.launched:
-        host = res.cpu().numpy()
+    for key, chunk, copies in pending.launched:
+        for _, event in copies:
+            if event is not None:
+                event.synchronize()
+        host = (copies[0][0].numpy() if len(copies) == 1 else
+                np.concatenate([h.numpy() for h, _ in copies]))
         for b, it in enumerate(chunk):
+            if it is None:
+                continue
             cnt = int(host[b, -1])
             counts[it.qi] += cnt
             if not cnt:
@@ -574,24 +820,29 @@ def execute_batch(index: HybridIndex, queries: list[list[int]], *,
                   max_results: int = 1 << 16,
                   max_group_size: int = MAX_GROUP_SIZE, cache=None,
                   skip: bool = True, stats: dict | None = None,
+                  pool: "source.ResidentPool | None" = None,
                   fuse: bool = True, plan: FusionPlan | None = None
                   ) -> list[QueryResult]:
     """Answer a batch of conjunctive queries on the index's device; results
     are element-for-element identical to ``engine.query`` per query.
 
     cache: optional DecodeCache.  skip: False forces full decodes of every
-    fold list.  fuse: coarsen the scheduled groups into megagroup families
-    (False keeps one program per scheduled signature; results are identical
-    either way).  plan: a FusionPlan carrying sticky family ceilings across
-    calls.  stats: optional dict of scheduler counters (n_groups,
+    fold list.  pool: optional ResidentPool — operands are served from (and
+    staged into) the device-resident index and assembled by arena gathers.
+    fuse: coarsen the scheduled groups into megagroup families (False keeps
+    one program per scheduled signature; results are identical either way).
+    plan: a FusionPlan carrying sticky family ceilings across calls.
+    stats: optional dict of scheduler counters (n_groups,
     n_sched_groups/n_fused_groups, n_dispatches, n_compiles, n_items,
-    decoded_ints, skip_folds, signatures)."""
-    groups = schedule(index, queries, cache=cache, skip=skip, stats=stats)
+    decoded_ints, skip_folds, resident_hits, signatures)."""
+    groups = schedule(index, queries, cache=cache, skip=skip, stats=stats,
+                      pool=pool)
     if fuse:
         groups = fuse_groups(groups, plan=plan, stats=stats)
     pending = launch_groups(groups, n_queries=len(queries),
                             max_results=max_results,
-                            max_group_size=max_group_size, stats=stats)
+                            max_group_size=max_group_size, pool=pool,
+                            stats=stats)
     return collect_batch(pending)
 
 
@@ -644,7 +895,8 @@ def warm_to_fixed_point(run_fn, max_passes: int = 4
 
 
 def warmup(index: HybridIndex, queries: list[list[int]] | None = None, *,
-           plan: FusionPlan, batch_size: int = 32, cache=None,
+           plan: FusionPlan, batch_size: int = 32,
+           pool: "source.ResidentPool | None" = None, cache=None,
            skip: bool = True, max_group_size: int = MAX_GROUP_SIZE,
            max_passes: int = 4, seed: int = 0) -> dict:
     """Run the fused pipeline over ``queries`` (or a synthesized sample)
@@ -660,7 +912,7 @@ def warmup(index: HybridIndex, queries: list[list[int]] | None = None, *,
     def one_pass(stats):
         for lo in range(0, len(queries), batch_size):
             execute_batch(index, queries[lo: lo + batch_size], cache=cache,
-                          skip=skip, fuse=True, plan=plan,
+                          skip=skip, pool=pool, fuse=True, plan=plan,
                           max_group_size=max_group_size, stats=stats)
 
     n_signatures, passes, converged = warm_to_fixed_point(one_pass,

@@ -40,6 +40,8 @@ class TermPosting:
     n: int                     # postings in this part
     raw: np.ndarray | None = None   # kept for oracle checks in tests
     skip_ok: bool = True       # False forces the decoded path
+    host: np.ndarray | None = None  # a bitmap's host words, taken on first
+                                    # use (source.bitmap_host)
 
 
 _part_uids = itertools.count()
@@ -295,3 +297,25 @@ def build(postings: list[np.ndarray], n_docs: int, codec_name: str = "bp-d1",
         from repro_torch.index import source
         source.precompute_layouts(parts)
     return HybridIndex(n_docs=n_docs, B=B, codec_name=codec_name, parts=parts)
+
+
+def build_sharded(postings: list[np.ndarray], n_docs: int, *, n_shards: int,
+                  codec_name: str = "bp-d1", B: int = 0,
+                  n_parts: int | None = None, keep_raw: bool = False,
+                  varint_tail_below: int = 1024,
+                  capacity_ints: int = 1 << 26, warm: bool = True,
+                  cost_table=None, device=None):
+    """Per-part build placed onto data-parallel shards: ``n_parts``
+    doc-id-range parts (default ``n_shards``, the 1:1 mapping) built on
+    ``device`` (None = the CUDA card) and returned as an
+    ``index.shard.ShardedIndex`` with its part→shard→device placement map,
+    each shard's working set staged on its own device when ``warm``."""
+    if n_parts is None:
+        n_parts = n_shards
+    idx = build(postings, n_docs, codec_name=codec_name, B=B,
+                n_parts=n_parts, keep_raw=keep_raw,
+                varint_tail_below=varint_tail_below, device=device,
+                cost_table=cost_table)
+    from repro_torch.index import shard as shard_lib
+    return shard_lib.shard_index(idx, n_shards, capacity_ints=capacity_ints,
+                                 warm=warm)

@@ -101,7 +101,7 @@ def _packed_probe(r: torch.Tensor, r_count: int, src: source.PackedSource,
 
 def _intersect_part(part: IndexPart, term_ids: list[int], codec,
                     skip: bool = True, cache=None,
-                    stats: dict | None = None):
+                    stats: dict | None = None, pool=None):
     """Returns (('list', padded candidate vals) | ('bitmap', words), count)."""
     tps = [part.terms[t] for t in term_ids]
     if any(tp.kind == "empty" for tp in tps):
@@ -118,13 +118,14 @@ def _intersect_part(part: IndexPart, term_ids: list[int], codec,
     id_of = {id(tp): t for t, tp in zip(term_ids, tps)}
     # the shortest list seeds the candidate buffer — always decoded
     seed = source.resolve(part, id_of[id(lists[0])], lists[0], codec,
-                          cache=cache, r_count=None, stats=stats)
+                          cache=cache, r_count=None, stats=stats, pool=pool)
     r, r_count = seed.vals, seed.n
     for tp in lists[1:]:
         if r_count == 0:
             break
         src = source.resolve(part, id_of[id(tp)], tp, codec, cache=cache,
-                             r_count=r_count, skip=skip, stats=stats)
+                             r_count=r_count, skip=skip, stats=stats,
+                             pool=pool)
         if isinstance(src, source.PackedSource):
             # galloping + skip: the long list is never fully decoded
             mask = _packed_probe(r, r_count, src, stats=stats)
@@ -143,20 +144,23 @@ def _intersect_part(part: IndexPart, term_ids: list[int], codec,
 
 def query(index: HybridIndex, term_ids: list[int],
           max_results: int = 1 << 16, cache: DecodeCache | None = None,
-          skip: bool = True, stats: dict | None = None) -> QueryResult:
+          skip: bool = True, stats: dict | None = None,
+          pool: "source.ResidentPool | None" = None) -> QueryResult:
     """Answer one conjunctive query on the index's device.
 
     cache: optional DecodeCache → the paper's Table 4 regime (SvS over
     already-decoded lists); None → Table 5 regime (decode per query).  Long
     skip-capable lists go through the packed skip path unless
     ``skip=False``.  stats: optional dict accumulating decoded_ints /
-    skip_folds counters."""
+    skip_folds counters.  pool: optional ResidentPool on the index's
+    device — decoded operands are served from (and staged into) it; long
+    skip-served lists still go to K3 unless the pool holds them decoded."""
     codec = codec_lib.get_codec(index.codec_name)
     total = 0
     out_docs = []
     for part in index.parts:
         res, cnt = _intersect_part(part, term_ids, codec, skip=skip,
-                                   cache=cache, stats=stats)
+                                   cache=cache, stats=stats, pool=pool)
         total += cnt
         if cnt and res is not None:
             kind, payload = res

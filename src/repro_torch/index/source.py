@@ -1,7 +1,8 @@
-"""Posting-source layer: one decode/skip policy for the engine.
+"""Posting-source layer: one decode/skip policy for both engines, and the
+device-resident operand pool.
 
-Port of the non-residency half of ``src/repro/index/source.py``.  A query
-term resolves to one of two sources:
+Port of ``src/repro/index/source.py``.  A query term resolves to one of two
+sources:
 
   DecodedSource — the padded int32 value tensor: short lists, cache-resident
                   lists and codecs without a skip index.
@@ -13,8 +14,19 @@ term resolves to one of two sources:
 family (``bitpack.skip_capable``) and cache residency, and keeps the
 decoded-ints accounting in ``stats``.  Decodes stay on the index's device:
 where the reference decodes to numpy and uploads, the port decodes on the
-card and pads there.  The device-resident pool (``ResidentPool``) is not
-yet ported.
+card (K1, K7) and pads there.
+
+Residency (``ResidentPool``, ``RowArena``): decoded value rows and bitmap
+word rows are staged once on the pool's device, LRU-evicted against an int
+budget that counts every tensor the pool holds there (store entries, their
+pad memos, identity rows and arenas), and served to every later batch.  A
+``RowArena`` packs same-shape rows into one device matrix so that a group's
+operand is one ``index_select`` gather.  Every entry keeps its host copy
+(``vals_np``): the scheduler reads seed values on the host for the block-max
+search, and a copy off the card per seed would wait for every batch already
+queued on the stream.  A pool miss decodes on the card and takes that host
+copy once.  Bitmap and layout rows keep the port's int32 bit patterns (the
+bitmap all-ones row is -1).
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from repro_torch.core import intersect as its
 from repro_torch.core import streamvbyte
 from repro_torch.core import varint as varint_lib
 from repro_torch.core.intersect import to_device
-from repro_torch.kernels import svb_decode
+from repro_torch.kernels import ops, svb_decode
 
 # Ratio above which a skip-capable list is probed packed instead of decoded
 # (the same constant the decoded-path dispatcher uses).
@@ -45,9 +57,13 @@ CAND_FLOOR = 8
 
 @dataclasses.dataclass
 class DecodedSource:
-    """Fully decoded posting list: padded int32 values + valid count."""
+    """Fully decoded posting list: padded int32 values + valid count.
+    ``vals_np`` is the host copy where one exists for free (pool entries and
+    their fresh decodes), so schedulers read values without a copy off the
+    card.  ``key`` is the (part.uid, tid) identity for pool lookups."""
     vals: torch.Tensor
     n: int
+    vals_np: np.ndarray | None = None
     key: tuple = ()
 
 
@@ -87,10 +103,43 @@ class PackedSource:
         return bitpack.candidate_block_ids(self.maxes_np, values)
 
     def layout(self, k_pad: int, t_pad: int, e_pad: int) -> bitpack.PackedLayout:
-        return bitpack.layout_np(self.payload, k_pad, t_pad, e_pad)
+        """The layout at (k_pad, t_pad, e_pad).  At the payload's own pads it
+        is projected from the payload (at build, by ``precompute_layouts``);
+        at wider pads (a group's) it extends the memoized self-padded host
+        layout, so the query path copies nothing off the card."""
+        pads = (k_pad, t_pad, e_pad)
+        if pads == self.self_pads():
+            return bitpack.layout_np(self.payload, k_pad, t_pad, e_pad)
+        return _extend_layout(_layout_entry(self, self.self_pads())["np"],
+                              self.num_blocks,
+                              int(self.payload.flat_words.shape[0]),
+                              self.num_exceptions, pads)
 
     def self_pads(self) -> tuple[int, int, int]:
         return bitpack.self_pads(self.payload)
+
+
+def _extend_layout(lay: bitpack.PackedLayout, K: int, T: int, E: int,
+                   pads: tuple) -> bitpack.PackedLayout:
+    """``lay`` re-padded to wider ``pads`` with ``bitpack.layout_np``'s pad
+    values: zero words and widths, offsets T − 1, maxes the last block's
+    max, exception positions -1 and additions 0."""
+    k_pad, t_pad, e_pad = pads
+    if K > k_pad or T > t_pad or E > e_pad:
+        raise ValueError(f"pads too small: K={K}, T={T}, E={E} for {pads}")
+
+    def ext(a, size, fill):
+        out = np.full((size,) + a.shape[1:], fill, a.dtype)
+        out[: a.shape[0]] = a[:size]
+        return out
+
+    return dataclasses.replace(
+        lay, words=ext(lay.words[:T], t_pad, 0),
+        widths=ext(lay.widths[:K], k_pad, 0),
+        offsets=ext(lay.offsets[:K], k_pad, max(T - 1, 0)),
+        maxes=ext(lay.maxes[:K], k_pad, lay.maxes[K - 1] if K else 0),
+        exc_pos=ext(lay.exc_pos[:E], e_pad, -1),
+        exc_add=ext(lay.exc_add[:E], e_pad, 0))
 
 
 def pad_block_ids(blk: np.ndarray, c_pad: int, k_pad: int) -> np.ndarray:
@@ -102,8 +151,9 @@ def pad_block_ids(blk: np.ndarray, c_pad: int, k_pad: int) -> np.ndarray:
 
 
 # Memoized padded layouts, keyed by ((part.uid, tid), pads) and LRU-bounded
-# by total layout ints: each entry holds the host layout and its copy on the
-# payload's device, so the query path uploads only candidate block ids.
+# by total layout ints: each entry holds the host layout and its copies by
+# device (the payload's, and each shard's pool device), so the query path
+# uploads only candidate block ids.
 _LAYOUT_CACHE: OrderedDict = OrderedDict()
 _LAYOUT_CACHE_BUDGET = 1 << 26      # total ints across cached layouts
 _layout_cache_size = 0
@@ -120,7 +170,7 @@ def _layout_entry(src: PackedSource, pads: tuple, stats: dict | None = None):
     entry = _LAYOUT_CACHE.get(key)
     if entry is None:
         _bump(stats, "layout_misses")
-        entry = {"np": src.layout(*pads), "dev": None}
+        entry = {"np": src.layout(*pads), "dev": {}}
         _LAYOUT_CACHE[key] = entry
         _layout_cache_size += _layout_ints(pads)
         while (_layout_cache_size > _LAYOUT_CACHE_BUDGET
@@ -139,19 +189,27 @@ def cached_layout_np(src: PackedSource, pads: tuple,
     return _layout_entry(src, pads, stats)["np"]
 
 
+def layout_rows(lay: bitpack.PackedLayout) -> tuple:
+    """A host layout's six operands in K5's order less the block ids —
+    words, widths, offsets, maxes, exc_pos, exc_add — as int32 bit
+    patterns."""
+    return tuple(np.ascontiguousarray(x).view(np.int32)
+                 for x in (lay.words, lay.widths, lay.offsets, lay.maxes,
+                           lay.exc_pos, lay.exc_add))
+
+
 def cached_layout_dev(src: PackedSource, pads: tuple,
-                      stats: dict | None = None) -> tuple:
-    """Memoized layout operands on the payload's device: (words, widths,
-    offsets, maxes, exc_pos, exc_add), uint32 arrays as int32 bit patterns."""
+                      stats: dict | None = None, device=None) -> tuple:
+    """Memoized layout operands on ``device`` (None = the payload's):
+    (words, widths, offsets, maxes, exc_pos, exc_add), uint32 arrays as
+    int32 bit patterns.  Sharded serving keeps one copy per shard device."""
     entry = _layout_entry(src, pads, stats)
-    if entry["dev"] is None:
-        lay = entry["np"]
-        device = src.payload.widths.device
-        entry["dev"] = tuple(
-            to_device(np.ascontiguousarray(x).view(np.int32), device)
-            for x in (lay.words, lay.widths, lay.offsets, lay.maxes,
-                      lay.exc_pos, lay.exc_add))
-    return entry["dev"]
+    device = src.payload.widths.device if device is None else device
+    dev = entry["dev"].get(device)
+    if dev is None:
+        dev = tuple(to_device(x, device) for x in layout_rows(entry["np"]))
+        entry["dev"][device] = dev
+    return dev
 
 
 def precompute_layouts(parts, stats: dict | None = None) -> int:
@@ -197,10 +255,27 @@ def decode_padded(codec, tp, device) -> tuple[torch.Tensor, int]:
     return its.pad_to_tensor(vals, its.pow2_bucket(tp.n)), tp.n
 
 
-def decode_padded_np(codec, tp) -> tuple[np.ndarray, int]:
-    """Host copy of ``decode_padded``."""
-    vals, n = decode_padded(codec, tp, "cpu")
-    return vals.cpu().numpy(), n
+def decode_staged(codec, tp, device) -> tuple[torch.Tensor, np.ndarray, int]:
+    """A pool miss: (values on ``device``, their host copy, count).  Varint
+    decodes on the host and is uploaded; the rest decode where the payload
+    lies (K1 or K7 on the card), move to ``device`` where that is another
+    one, and are copied off the card once."""
+    if isinstance(tp.payload, varint_lib.VarintList):
+        host = its.pad_to(varint_lib.decode(tp.payload).astype(np.int32),
+                          its.pow2_bucket(tp.n))
+        return to_device(host, device), host, tp.n
+    vals, n = decode_padded(codec, tp, device)
+    vals = vals.to(device)
+    return vals, vals.cpu().numpy(), n
+
+
+def bitmap_host(tp) -> np.ndarray:
+    """Host copy of a bitmap term's words (int32 bit patterns), taken once
+    and kept on the term, so schedulers read it without a copy off the
+    card."""
+    if getattr(tp, "host", None) is None:
+        tp.host = tp.payload.cpu().numpy()
+    return tp.host
 
 
 def _bump(stats, key, by=1):
@@ -208,14 +283,364 @@ def _bump(stats, key, by=1):
         stats[key] = stats.get(key, 0) + by
 
 
+# --------------------------------------------------------------------------
+# device-resident operand pool
+# --------------------------------------------------------------------------
+
+def pool_device(device) -> torch.device:
+    """A pool's device: the CUDA card unless the caller asks for the CPU
+    (as ``ops.resolve_device``), with the card's index filled in so that
+    the device compares equal to a tensor's."""
+    dev = ops.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class RowArena:
+    """Same-shape resident rows packed into ONE device matrix, so a group's
+    operand assembly is one ``index_select`` gather instead of a stack of
+    row copies.
+
+    Identity rows (SENTINEL / all-ones / all-zero / pad layout) take the
+    first slots, so padded and inactive grid positions gather them.  The
+    buffer is rebuilt (a host ``np.stack`` and one pinned upload that does
+    not wait for the card) only when rows joined since the last build, at a
+    power-of-two row capacity (filler: the identity row).  A build replaces
+    the tensor; programs already queued keep the old one.
+
+    ``evict(key)`` returns a row's slot to a free list for the next miss,
+    so churn does not grow the buffer; ``ints`` is the allocated footprint
+    (the high-water row count), which the pool counts against its
+    capacity."""
+
+    def __init__(self, identities: list, device):
+        self.rows_np: list = list(identities)
+        self.slots: dict = {}
+        self.device = device
+        self.evictions = 0
+        self.builds = 0
+        self._free: list[int] = []
+        self._buf = None
+
+    def slot(self, key, make_np) -> int:
+        s = self.slots.get(key)
+        if s is None:
+            if self._free:
+                s = self._free.pop()
+                self.rows_np[s] = make_np()
+            else:
+                s = len(self.rows_np)
+                self.rows_np.append(make_np())
+            self.slots[key] = s
+            self._buf = None
+        return s
+
+    def evict(self, key) -> int:
+        """Drop one row: its slot reverts to the identity row and is reused
+        by the next ``slot()`` miss.  Returns the ints the slot will stop
+        pinning once reused."""
+        s = self.slots.pop(key, None)
+        if s is None:
+            return 0
+        self.rows_np[s] = self.rows_np[0]
+        self._free.append(s)
+        self.evictions += 1
+        return int(np.prod(self.rows_np[0].shape))
+
+    @property
+    def ints(self) -> int:
+        return len(self.rows_np) * int(np.prod(self.rows_np[0].shape))
+
+    def buffer(self) -> torch.Tensor:
+        if self._buf is None:
+            cap = 1
+            while cap < len(self.rows_np):
+                cap <<= 1
+            rows = self.rows_np + [self.rows_np[0]] * (cap - len(self.rows_np))
+            self._buf = to_device(np.stack(rows), self.device)
+            self.builds += 1
+        return self._buf
+
+    def gather(self, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``idx`` (any shape) of the buffer, shaped idx.shape + row:
+        one upload of the ids and one ``index_select``."""
+        flat = to_device(np.ascontiguousarray(idx, np.int32).reshape(-1),
+                         self.device)
+        rows = torch.index_select(self.buffer(), 0, flat)
+        return rows.reshape(idx.shape + self.rows_np[0].shape)
+
+
+class ResidentPool:
+    """Device-resident index operands: decoded value rows and bitmap word
+    rows staged once on ``device`` (None = the CUDA card; pass "cpu" for
+    the CPU) and reused by every later batch (packed layouts stay resident
+    through the layout memo).
+
+    Entries are LRU-evicted against ``capacity_ints``, which bounds the
+    pool's whole footprint on its device (``device_ints``): store entries,
+    their per-size pad memos (dropped with the entry), identity rows and
+    arenas.  ``staged_ints - evicted_ints == resident_ints`` holds for the
+    store.  Evicting an entry also frees its arena rows.  Each entry keeps
+    the host copy beside the device tensor (see the module docstring)."""
+
+    def __init__(self, capacity_ints: int = 1 << 26, device=None, tag=None):
+        self.capacity = capacity_ints
+        self.device = pool_device(device)
+        self.tag = tag
+        self._store: OrderedDict = OrderedDict()
+        self._pad_rows: dict[tuple, torch.Tensor] = {}
+        self._arenas: dict[tuple, RowArena] = {}
+        self.hits = 0
+        self.misses = 0
+        self.staged_lists = 0
+        self.staged_ints = 0
+        self.evicted_lists = 0
+        self.evicted_ints = 0
+        self.resident_ints = 0
+        self.pad_ints = 0              # current pad-memo ints (⊂ resident)
+
+    # -- staging -----------------------------------------------------------
+
+    def overhead_ints(self) -> int:
+        """Device ints the pool holds outside the LRU store: identity rows
+        and the row arenas (allocated footprint)."""
+        return (sum(int(r.numel()) for r in self._pad_rows.values())
+                + sum(a.ints for a in self._arenas.values()))
+
+    def device_ints(self) -> int:
+        """The pool's whole footprint on its device."""
+        return self.resident_ints + self.overhead_ints()
+
+    def _evict(self):
+        while (self.device_ints() > self.capacity
+               and len(self._store) > 1):
+            key, old = self._store.popitem(last=False)
+            freed = old["ints"] + old["pad_ints"]
+            self.evicted_lists += 1
+            self.evicted_ints += freed
+            self.resident_ints -= freed
+            self.pad_ints -= old["pad_ints"]
+            old["pads"].clear()
+            for arena in self._arenas.values():
+                arena.evict(key)
+
+    def _on_device(self, host: np.ndarray, dev) -> torch.Tensor:
+        if dev is None:
+            return to_device(host, self.device)
+        return dev if dev.device == self.device else dev.to(self.device)
+
+    def _add(self, key, host: np.ndarray, n: int, dev) -> dict:
+        entry = {"dev": self._on_device(host, dev), "np": host, "n": n,
+                 "pads": {}, "ints": int(host.shape[0]), "pad_ints": 0}
+        self._store[key] = entry
+        self.staged_lists += 1
+        self.staged_ints += entry["ints"]
+        self.resident_ints += entry["ints"]
+        self._evict()
+        return entry
+
+    def stage(self, key, vals_np: np.ndarray, n: int,
+              dev: torch.Tensor | None = None) -> dict:
+        """Stage one padded decoded list; ``dev`` is its tensor where one
+        exists already (moved to the pool's device if it lies elsewhere),
+        else the host copy is uploaded."""
+        if key in self._store:
+            self._store.move_to_end(key)
+            return self._store[key]
+        return self._add(key, vals_np, n, dev)
+
+    def stage_bitmap(self, key, words_np: np.ndarray,
+                     dev: torch.Tensor | None = None) -> torch.Tensor:
+        """Stage one bitmap term's word row (``key`` carries a 'bm' tag);
+        ``dev`` as in ``stage``."""
+        entry = self._store.get(key)
+        if entry is None:
+            entry = self._add(key, words_np, int(words_np.shape[0]), dev)
+        else:
+            self._store.move_to_end(key)
+        return entry["dev"]
+
+    # -- lookup ------------------------------------------------------------
+
+    def get(self, key):
+        """(device vals, host vals, n) or None — counts hit/miss."""
+        entry = self._store.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self.hits += 1
+        self._store.move_to_end(key)
+        return entry["dev"], entry["np"], entry["n"]
+
+    def __contains__(self, key) -> bool:
+        return key in self._store        # residency peek: no counters
+
+    def padded(self, src: DecodedSource, size: int) -> torch.Tensor:
+        """Device row of ``src`` SENTINEL-padded to ``size``, memoized per
+        (entry, size); a source that is not this pool's entry pads on the
+        device."""
+        base = src.vals
+        if base.shape[0] == size:
+            return base
+        entry = self._store.get(src.key) if src.key else None
+        if entry is not None and entry["dev"] is base:
+            dev = entry["pads"].get(size)
+            if dev is None:
+                dev = to_device(its.pad_to(entry["np"], size), self.device)
+                entry["pads"][size] = dev
+                entry["pad_ints"] += size
+                self.staged_ints += size
+                self.resident_ints += size
+                self.pad_ints += size
+                self._evict()
+            return dev
+        return its.pad_to_tensor(base, size)
+
+    def _identity(self, kind: str, size: int, fill: int) -> torch.Tensor:
+        row = self._pad_rows.get((kind, size))
+        if row is None:
+            row = torch.full((size,), fill, dtype=torch.int32,
+                             device=self.device)
+            self._pad_rows[(kind, size)] = row
+        return row
+
+    def sentinel_row(self, size: int) -> torch.Tensor:
+        """All-SENTINEL row (inactive fold / padded batch slots)."""
+        return self._identity("sent", size, int(its.SENTINEL))
+
+    def ones_row(self, words: int) -> torch.Tensor:
+        """All-ones bitmap row — the probe/AND identity."""
+        return self._identity("ones", words, -1)
+
+    def zeros_row(self, words: int) -> torch.Tensor:
+        """All-zero bitmap row — padded batch slots (popcount 0)."""
+        return self._identity("zero", words, 0)
+
+    # -- arenas ------------------------------------------------------------
+
+    # identity slots shared with the batch assembler:
+    #   fold arenas:   slot 0 = all-SENTINEL row
+    #   bitmap arenas: slot 0 = all-ones (probe/AND identity),
+    #                  slot 1 = all-zero (padded batch rows, popcount 0)
+    FOLD_PAD_SLOT = 0
+    BM_ONES_SLOT = 0
+    BM_ZERO_SLOT = 1
+
+    def _arena(self, key: tuple, identities) -> RowArena:
+        a = self._arenas.get(key)
+        if a is None:
+            a = self._arenas[key] = RowArena(identities(), self.device)
+        return a
+
+    def fold_arena(self, size: int) -> RowArena:
+        """Arena of SENTINEL-padded int32 value rows of length ``size``."""
+        return self._arena(("fold", size), lambda: [
+            np.full(size, its.SENTINEL, np.int32)])
+
+    def bitmap_arena(self, words: int) -> RowArena:
+        return self._arena(("bm", words), lambda: [
+            np.full(words, -1, np.int32), np.zeros(words, np.int32)])
+
+    def layout_arena(self, pads: tuple, op: int) -> RowArena:
+        """Arena of packed-layout operand ``op`` (words, widths, offsets,
+        maxes, exc_pos, exc_add) at group pads; slot 0 is the all-pad
+        layout, whose blocks are never candidates."""
+        k_pad, t_pad, e_pad = pads
+        return self._arena(("lay", pads, op), lambda: [(
+            np.zeros((t_pad, bitpack.LANES), np.int32),
+            np.zeros(k_pad, np.int32), np.zeros(k_pad, np.int32),
+            np.zeros(k_pad, np.int32), np.full(e_pad, -1, np.int32),
+            np.zeros(e_pad, np.int32))[op]])
+
+    def arena_stats(self) -> dict:
+        return {"arenas": len(self._arenas),
+                "arena_ints": sum(a.ints for a in self._arenas.values()),
+                "arena_rows": sum(len(a.slots)
+                                  for a in self._arenas.values()),
+                "arena_evictions": sum(a.evictions
+                                       for a in self._arenas.values())}
+
+    def arena_builds(self) -> int:
+        """Arena buffers built so far (a steady state builds none)."""
+        return sum(a.builds for a in self._arenas.values())
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def carry_from(self, other: "ResidentPool",
+                   part_uids: set | None = None) -> int:
+        """Adopt another pool's staged entries around their device tensors
+        (no re-decode, no second upload); ``part_uids`` restricts the carry
+        to those parts (None = all).  Returns the entries carried; they
+        count as freshly staged here."""
+        carried = 0
+        for key, e in list(other._store.items()):
+            if part_uids is not None:
+                uid = key[1] if (key and key[0] == "bm") else key[0]
+                if uid not in part_uids:
+                    continue
+            if key in self._store:
+                continue
+            if key and key[0] == "bm":
+                self.stage_bitmap(key, e["np"], dev=e["dev"])
+            else:
+                self.stage(key, e["np"], e["n"], dev=e["dev"])
+            carried += 1
+        return carried
+
+    def warm(self, index, stats: dict | None = None) -> dict:
+        """Stage the whole index per the resolve policy: bitmaps (around
+        the index's own tensors where they lie on the pool's device) and
+        decode-policy lists (decoded on the card, K1 or K7) go resident;
+        skip-capable long lists stay compressed and only warm their
+        self-padded layout.  Already-resident entries skip the decode."""
+        codec = codec_lib.get_codec(index.codec_name)
+        for part in index.parts:
+            for tid, tp in part.terms.items():
+                if tp.kind == "bitmap":
+                    self.stage_bitmap(("bm", part.uid, tid), bitmap_host(tp),
+                                      dev=tp.payload)
+                elif tp.kind == "list":
+                    if (part.uid, tid) in self._store:
+                        self._store.move_to_end((part.uid, tid))
+                        continue
+                    if (bitpack.skip_capable(tp.payload) and
+                            getattr(tp, "skip_ok", True) and
+                            int(tp.payload.widths.shape[0])
+                            >= SKIP_MIN_BLOCKS):
+                        continue                 # serves packed
+                    vals, vals_np, n = decode_staged(codec, tp, self.device)
+                    _bump(stats, "decoded_ints", decoded_ints_of(tp.payload))
+                    self.stage((part.uid, tid), vals_np, n, dev=vals)
+        precompute_layouts(index.parts, stats)
+        return self.stats()
+
+    def stats(self) -> dict:
+        return {"tag": self.tag,
+                "resident_lists": len(self._store),
+                "resident_ints": self.resident_ints,
+                "staged_lists": self.staged_lists,
+                "staged_ints": self.staged_ints,
+                "evicted_lists": self.evicted_lists,
+                "evicted_ints": self.evicted_ints,
+                "pad_ints": self.pad_ints,
+                "overhead_ints": self.overhead_ints(),
+                "device_ints": self.device_ints(),
+                "hits": self.hits, "misses": self.misses,
+                **self.arena_stats()}
+
+
 def resolve(part, tid: int, tp, codec, cache=None, r_count: int | None = None,
-            skip: bool = True, stats: dict | None = None):
+            skip: bool = True, stats: dict | None = None,
+            pool: ResidentPool | None = None):
     """Resolve one term posting to a DecodedSource or a PackedSource.
 
-    r_count: current candidate cardinality — None means this term *is* the
-    candidate seed and must decode.  skip=False forces the decoded path
-    everywhere.  A list already in the DecodeCache is served decoded even
-    where the ratio would skip-probe it."""
+    r_count: current (or scheduled) candidate cardinality — None means this
+    term *is* the candidate seed and must decode.  skip=False forces the
+    decoded path everywhere.  A list already in the DecodeCache or the
+    ``pool`` is served decoded even where the ratio would skip-probe it;
+    with a pool, fresh decodes are staged so the next batch gathers
+    instead of decoding."""
     key = (part.uid, tid)
     want_skip = (skip and r_count is not None
                  and bitpack.skip_capable(tp.payload)
@@ -226,14 +651,30 @@ def resolve(part, tid: int, tp, codec, cache=None, r_count: int | None = None,
         if cache is not None and key in cache:
             vals, n = cache.get(key)
             return DecodedSource(vals, n, key=key)
+        if pool is not None and key in pool:
+            dev, vals_np, n = pool.get(key)
+            _bump(stats, "resident_hits")
+            return DecodedSource(dev, n, vals_np=vals_np, key=key)
         return PackedSource(tp.payload, tp.n, key=key)
+    if pool is not None:
+        hit = pool.get(key)
+        if hit is not None:
+            _bump(stats, "resident_hits")
+            return DecodedSource(hit[0], hit[2], vals_np=hit[1], key=key)
     if cache is not None:
         hit = cache.get(key)
         if hit is not None:
+            if pool is not None:          # promote: next batch gathers
+                pool.stage(key, hit[0].cpu().numpy(), hit[1], dev=hit[0])
             return DecodedSource(hit[0], hit[1], key=key)
-    vals, n = decode_padded(codec, tp, part.device)
+    vals_np = None
+    if pool is not None:
+        vals, vals_np, n = decode_staged(codec, tp, pool.device)
+        vals = pool.stage(key, vals_np, n, dev=vals)["dev"]
+    else:
+        vals, n = decode_padded(codec, tp, part.device)
     _bump(stats, "decoded_ints", decoded_ints_of(tp.payload))
     _bump(stats, "decoded_lists")
     if cache is not None:
         cache.put(key, vals, n)
-    return DecodedSource(vals, n, key=key)
+    return DecodedSource(vals, n, vals_np=vals_np, key=key)

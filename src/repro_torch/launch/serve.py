@@ -2,20 +2,33 @@
 batched, and greedy generation on the dense LMs.
 
 Port of the paper-index path of ``src/repro/launch/serve.py``
-(``serve_index``, its sequential and single-device ``--batch`` branches)
-and of its LM path (``serve_lm``).
+(``coerce_index_flags``, ``serve_index`` with its sequential, ``--batch``,
+``--resident``, ``--pipeline`` and ``--shards`` branches) and of its LM
+path (``serve_lm``).
 It synthesizes the corpus, builds the HYB+M2 index (B=16, two parts) on the
 device, warms, and serves every query once more under the clock.
 ``--batch N`` (N > 1) serves through the batched engine
 (``index.batch.execute_batch``) in batches of N, fused into megagroup
 programs unless ``--no-fuse`` is given; ``--warmup`` warms the fused family
-ladder with ``batch.warmup`` first.  Hits equal the sequential serve's.
+ladder with ``batch.warmup`` first.  ``--resident`` warms a
+``source.ResidentPool`` (and prints its stats) that the engine serves
+from; ``--pipeline D`` serves through ``index.pipeline.execute_pipelined``
+with D batches in flight and prints the stage breakdown; ``--shards N``
+places the index's parts (max(N, 2) of them) on N shards, prints the
+placement map (shard → device → parts) and serves through
+``index.shard.execute_sharded``.  ``coerce_index_flags`` turns the implied
+flags on, with a warning each (``--pipeline`` implies ``--batch 32`` and
+``--resident``; ``--shards`` also ``--pipeline 2``).  Hits equal the
+sequential serve's in every mode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20 --cache \\
       --shared-vocab --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 32 --warmup
   PYTHONPATH=src python -m repro_torch.launch.serve --codec auto --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --resident --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --pipeline 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --shards 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --device cpu --tokens 4
 
@@ -26,9 +39,8 @@ and greedy decode on the smoke-reduced model, as the reference's
 other archs of the reference (MoE, recsys, GNN) raise "not yet ported".
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
-there is no card.  The flags of later slices (``--pipeline``, ``--shards``,
-``--mutate``, ``--qps``, ``--wal``, ``--chaos``, ``--resident``) raise "not
-yet ported".
+there is no card.  The flags of later slices (``--mutate``, ``--qps``,
+``--wal``, ``--chaos``) raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -46,8 +58,7 @@ from repro_torch.kernels import ops
 _CODEC_NAMES = {"auto": "auto", "bitpack": "bp-d1",
                 "streamvbyte": "streamvbyte-d1", "composite": "composite-d1",
                 "fastpfor": "fastpfor-d1", "varint": "varint"}
-_LATER_SLICES = ("pipeline", "shards", "mutate", "qps", "wal", "chaos",
-                 "resident")
+_LATER_SLICES = ("mutate", "qps", "wal", "chaos")
 
 
 def check_ported(args) -> None:
@@ -57,18 +68,108 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"--{flag} is not yet ported")
 
 
-def serve_queries(idx, queries, *, cache=None, skip: bool = True) -> dict:
+def coerce_index_flags(args) -> list[str]:
+    """Normalise paper-index flag interactions, returning one warning line
+    per coerced or ignored flag (the reference's table, whole).  ``args``
+    is changed in place so the serving paths read the effective values.
+    The live-traffic and mutable-index branches only rewrite flags: those
+    flags are refused afterwards by ``check_ported``."""
+    warnings = []
+    if getattr(args, "wal", None) and not getattr(args, "mutate", 0):
+        warnings.append("--wal implies the mutable index: --mutate 0 -> 256")
+        args.mutate = 256
+    if getattr(args, "chaos", None) and not getattr(args, "wal", None):
+        warnings.append("--chaos without --wal: durability crash points "
+                        "(wal.*/snapshot.*/merge.*) have no durable "
+                        "directory to recover from — only launch/collect "
+                        "seam faults can fire safely")
+    if (getattr(args, "timeout_ms", None) is not None
+            and not getattr(args, "qps", 0)):
+        warnings.append("--timeout-ms ignored without --qps (offline and "
+                        "drain serving have no per-request deadlines)")
+        args.timeout_ms = None
+    if getattr(args, "qps", 0):
+        if args.pipeline:
+            warnings.append("--pipeline ignored with --qps (the live "
+                            "server bounds in-flight batches itself)")
+            args.pipeline = 0
+        if args.shards:
+            warnings.append("--shards ignored with --qps (live sharded "
+                            "serving is the live server's own mode)")
+            args.shards = 0
+        if args.batch <= 1:
+            warnings.append(f"--qps implies batched mode: "
+                            f"--batch {args.batch} -> 32")
+            args.batch = 32
+    if getattr(args, "mutate", 0):
+        if args.batch <= 1:
+            warnings.append(f"--mutate implies batched mode: "
+                            f"--batch {args.batch} -> 32")
+            args.batch = 32
+        if args.pipeline:
+            warnings.append("--pipeline ignored with --mutate (the mutable "
+                            "path batches against generation snapshots)")
+            args.pipeline = 0
+        if args.cache:
+            warnings.append("--cache ignored with --mutate (decoded "
+                            "results change as the corpus mutates)")
+            args.cache = False
+        if not args.resident:
+            warnings.append("--mutate implies the device-resident index: "
+                            "--resident on (each generation owns a warmed "
+                            "ResidentPool)")
+            args.resident = True
+        return warnings
+    if getattr(args, "delete_frac", None) is not None:
+        warnings.append("--delete-frac ignored without --mutate")
+        args.delete_frac = None
+    if args.shards:
+        if args.batch <= 1:
+            warnings.append(f"--shards implies batched mode: "
+                            f"--batch {args.batch} -> 32")
+            args.batch = 32
+        if not args.pipeline:
+            warnings.append("--shards implies pipelined serving: "
+                            "--pipeline 0 -> 2")
+            args.pipeline = 2
+        if args.cache:
+            warnings.append("--cache ignored with --shards (per-shard "
+                            "device residency supersedes the decode cache)")
+            args.cache = False
+        if not args.resident:
+            warnings.append("--shards implies the device-resident index: "
+                            "--resident on")
+            args.resident = True
+    elif args.pipeline:
+        if args.batch <= 1:
+            warnings.append(f"--pipeline implies batched mode: "
+                            f"--batch {args.batch} -> 32")
+            args.batch = 32
+        if not args.resident:
+            warnings.append("--pipeline implies the device-resident index: "
+                            "--resident on")
+            args.resident = True
+    if args.warmup and not args.fuse:
+        warnings.append("--warmup warms the fused family ladder; with "
+                        "--no-fuse the signature fixed-point loop covers it")
+    return warnings
+
+
+def serve_queries(idx, queries, *, cache=None, skip: bool = True,
+                  pool=None) -> dict:
     """Serve ``queries`` sequentially as the reference's serve loop does:
-    warm passes first (two when a cache changes how terms resolve, else
-    one), then one timed pass that ends on the host with every answer read
-    back.  Returns the results, the wall time and the engine's counters."""
+    warm passes first (two when a cache or a pool changes how terms
+    resolve, else one), then one timed pass that ends on the host with
+    every answer read back.  Returns the results, the wall time and the
+    engine's counters."""
     from repro_torch.index import engine
-    for _ in range(2 if cache is not None else 1):
+    for _ in range(2 if (cache is not None or pool is not None) else 1):
         for q in queries:
-            engine.query(idx, q, cache=cache, skip=skip)
+            engine.query(idx, q, cache=cache, skip=skip, pool=pool)
     stats: dict = {}
     t0 = time.perf_counter()
-    results = [engine.query(idx, q, cache=cache, skip=skip, stats=stats)
+    results = [engine.query(idx, q, cache=cache, skip=skip, stats=stats,
+                            pool=pool)
                for q in queries]
     dt = time.perf_counter() - t0
     return {"results": results, "seconds": dt, "stats": stats,
@@ -77,34 +178,42 @@ def serve_queries(idx, queries, *, cache=None, skip: bool = True) -> dict:
 
 def serve_batched(idx, queries, *, batch: int, fuse: bool = True,
                   warmup: bool = False, cache=None, skip: bool = True,
-                  plan=None) -> dict:
+                  plan=None, pool=None, depth: int = 0) -> dict:
     """Serve ``queries`` through ``batch.execute_batch`` in batches of
-    ``batch``, as the reference's ``--batch`` loop does: warm first
-    (``batch.warmup`` over the query stream with ``warmup`` and ``fuse``,
-    else passes until no new program signature appears), then one timed
-    pass that ends with every answer on the host.  ``plan`` is the serving
-    session's FusionPlan (a new one when None; unused unfused).  Returns
-    the results, the wall time, the counters of the timed pass and the
-    warmup's report."""
+    ``batch`` (with ``depth`` > 0, through ``pipeline.execute_pipelined``
+    with that many batches in flight), as the reference's ``--batch`` loop
+    does: warm first (``batch.warmup`` over the query stream with
+    ``warmup`` and ``fuse``, else passes until no new program signature
+    appears), then one timed pass that ends with every answer on the host.
+    ``plan`` is the serving session's FusionPlan (a new one when None;
+    unused unfused); ``pool`` a ResidentPool to serve from.  Returns the
+    results, the wall time, the counters of the timed pass, the warmup's
+    report and, pipelined, the timed pass's ``StageTimings``."""
     from repro_torch.index import batch as batch_lib
+    from repro_torch.index import pipeline as pipe_lib
     if not fuse:
         plan = None
     elif plan is None:
         plan = batch_lib.FusionPlan()
 
-    def run_all(stats=None):
+    def run_all(stats=None, timings=None):
         stats = {} if stats is None else stats
+        if depth:
+            return pipe_lib.execute_pipelined(
+                idx, queries, batch_size=batch, depth=depth, cache=cache,
+                skip=skip, pool=pool, fuse=fuse, plan=plan, stats=stats,
+                timings=timings), stats
         out = []
         for lo in range(0, len(queries), batch):
             out.extend(batch_lib.execute_batch(
                 idx, queries[lo: lo + batch], cache=cache, skip=skip,
-                fuse=fuse, plan=plan, stats=stats))
+                pool=pool, fuse=fuse, plan=plan, stats=stats))
         return out, stats
 
     wu = None
     if warmup and fuse:
         wu = batch_lib.warmup(idx, queries, plan=plan, batch_size=batch,
-                              cache=cache, skip=skip)
+                              pool=pool, cache=cache, skip=skip)
         print(f"[serve] warmup: {wu['n_compiles']} compiles over "
               f"{wu['n_signatures']} signatures in {wu['passes']} "
               f"passes ({wu['time_s']:.2f}s)")
@@ -116,53 +225,162 @@ def serve_batched(idx, queries, *, batch: int, fuse: bool = True,
         print("[serve] warning: the warm loop stopped at max_passes before "
               "the signature ladder reached a fixed point — the timed run "
               "may launch new programs")
+    timings = pipe_lib.StageTimings() if depth else None
     t0 = time.perf_counter()
-    results, stats = run_all()
+    results, stats = run_all(timings=timings)
     dt = time.perf_counter() - t0
     return {"results": results, "seconds": dt, "stats": stats,
-            "hits": sum(r.count for r in results), "warmup": wu}
+            "hits": sum(r.count for r in results), "warmup": wu,
+            "timings": timings}
+
+
+def serve_sharded(sharded, queries, *, batch: int, depth: int,
+                  fuse: bool = True, plan=None) -> dict:
+    """Serve ``queries`` through ``shard.execute_sharded`` as the
+    reference's ``--shards`` loop does: passes until no new program
+    signature appears, then one timed pass with its ``StageTimings``.
+    Returns what ``serve_batched`` returns (``warmup``: (signatures,
+    passes, converged) of the warm loop)."""
+    from repro_torch.index import batch as batch_lib
+    from repro_torch.index import pipeline as pipe_lib
+    from repro_torch.index import shard as shard_lib
+    if not fuse:
+        plan = None
+    elif plan is None:
+        plan = batch_lib.FusionPlan()
+
+    def run_all(stats=None, timings=None):
+        return shard_lib.execute_sharded(
+            sharded, queries, batch_size=batch, depth=depth, fuse=fuse,
+            plan=plan, stats=stats, timings=timings)
+
+    warm = batch_lib.warm_to_fixed_point(lambda s: run_all(stats=s))
+    if not warm[2]:
+        print(f"[serve] warning: signature warm loop stopped at max_passes "
+              f"({warm[1]} passes, {warm[0]} signatures) without converging "
+              f"— the timed run may launch new programs")
+    timings = pipe_lib.StageTimings()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    results = run_all(stats=stats, timings=timings)
+    dt = time.perf_counter() - t0
+    return {"results": results, "seconds": dt, "stats": stats,
+            "hits": sum(r.count for r in results), "warmup": warm,
+            "timings": timings}
+
+
+def stage_line(timings) -> str:
+    """The stage breakdown of a pipelined pass: each stage's milliseconds
+    and share of their sum."""
+    tot = max(timings.stage + timings.assemble + timings.dispatch
+              + timings.block, 1e-9)
+    return ", ".join(f"{name} {t * 1e3:.1f} ms ({t / tot:.0%})" for name, t in (
+        ("stage", timings.stage), ("assemble", timings.assemble),
+        ("dispatch", timings.dispatch), ("block", timings.block))) + \
+        f" over {timings.batches} batches"
+
+
+def _batched_line(mode: str, n: int, rep: dict, n_batches: int) -> str:
+    """The reference's summary line of a batched, pipelined or sharded
+    serve; ``mode`` names the path, e.g. "--batch 32 (cuda, fused)"."""
+    dt, stats = rep["seconds"], rep["stats"]
+    nd = stats.get("n_dispatches", 0)
+    return (f"[serve] paper-index {mode}: {n} queries, {n / dt:.1f} q/s ({dt / n * 1e3:.2f} ms/query), "
+            f"{rep['hits']} hits, {nd} dispatches "
+            f"({nd / n_batches:.1f}/batch, "
+            f"{len(stats.get('signatures', ()))} programs, "
+            f"{stats.get('n_compiles', 0)} compiles), "
+            f"{stats.get('decoded_ints', 0) / n:.0f} decoded ints/query "
+            f"({stats.get('skip_folds', 0)} skip folds, "
+            f"{stats.get('resident_hits', 0)} resident hits)")
+
+
+def _codec_line(codec: str, idx, device) -> str:
+    """The storage report beside a build: bytes/int and lists by family."""
+    st = idx.stats()
+    counts = " ".join(f"{k}:{v}" for k, v in sorted(st["codec_counts"].items()))
+    return (f"[serve] index codec {codec} on {device}: "
+            f"{st['bytes_per_int']:.2f} bytes/int "
+            f"({st['bits_per_int']:.2f} bits/int) [{counts}]")
 
 
 def serve_index(args, *, n_docs: int = 1 << 16) -> dict:
     """Build the index for ``args`` and serve its queries; prints the
-    reference's summary line and returns ``serve_queries``' report."""
-    from repro_torch.index import builder, corpus as corpus_lib, engine
+    reference's summary lines and returns the serving report."""
+    from repro_torch.index import builder, corpus as corpus_lib, engine, source
+    for w in coerce_index_flags(args):
+        print(f"[serve] warning: {w}")
     check_ported(args)
     device = ops.resolve_device(args.device)
     corpus = corpus_lib.synthesize(n_docs=n_docs, n_queries=args.queries,
                                    seed=args.seed,
                                    shared_vocab=args.shared_vocab)
-    idx = builder.build(corpus.postings, corpus.n_docs,
-                        codec_name=_CODEC_NAMES[args.codec], B=16, n_parts=2,
-                        device=device)
-    st = idx.stats()
-    counts = " ".join(f"{k}:{v}" for k, v in sorted(st["codec_counts"].items()))
-    print(f"[serve] index codec {args.codec} on {device}: "
-          f"{st['bytes_per_int']:.2f} bytes/int "
-          f"({st['bits_per_int']:.2f} bits/int) [{counts}]")
-    cache = engine.DecodeCache() if args.cache else None
+    codec_name = _CODEC_NAMES[args.codec]
     n = len(corpus.queries)
-    note = lambda: (f", cache hit rate {cache.hit_rate:.2f}"
-                    if cache is not None else "")
+    n_batches = max((n + args.batch - 1) // max(args.batch, 1), 1)
+    fused = "fused" if args.fuse else "unfused"
+    if args.shards:
+        t0 = time.perf_counter()
+        sharded = builder.build_sharded(
+            corpus.postings, corpus.n_docs, n_shards=args.shards,
+            codec_name=codec_name, B=16, n_parts=max(args.shards, 2),
+            device=device)
+        print(_codec_line(args.codec, sharded.index, device))
+        st = sharded.stats()
+        print(f"[serve] sharded index: {st['n_shards']} shards on "
+              f"{st['n_devices']} devices, warmed in "
+              f"{time.perf_counter() - t0:.2f}s")
+        for sh in st["shards"]:
+            print(f"[serve]   shard {sh['shard']} -> {sh['device']}: "
+                  f"parts {sh['parts']}, {sh['resident_lists']} lists "
+                  f"({sh['resident_ints']} ints) resident")
+        rep = serve_sharded(sharded, corpus.queries, batch=args.batch,
+                            depth=args.pipeline, fuse=args.fuse)
+        print(_batched_line(f"--shards {args.shards} (batch {args.batch}, "
+                            f"depth {args.pipeline}, {device.type}, "
+                            f"{fused})", n, rep, n_batches))
+        print(f"[serve]   {stage_line(rep['timings'])}")
+        return rep
+    idx = builder.build(corpus.postings, corpus.n_docs, codec_name=codec_name,
+                        B=16, n_parts=2, device=device)
+    st = idx.stats()
+    print(_codec_line(args.codec, idx, device))
+    cache = engine.DecodeCache() if args.cache else None
+    pool = None
+    if args.resident:
+        pool = source.ResidentPool(device=device)
+        t0 = time.perf_counter()
+        ps = pool.warm(idx)
+        print(f"[serve] resident index: staged {ps['staged_lists']} lists "
+              f"({ps['staged_ints']} ints) in {time.perf_counter() - t0:.2f}s"
+              f"; {ps['device_ints']} device ints of {pool.capacity}, "
+              f"{ps['evicted_lists']} evicted")
+
+    def note():
+        out = ""
+        if cache is not None:
+            out += f", cache hit rate {cache.hit_rate:.2f}"
+        if pool is not None:
+            ps = pool.stats()
+            out += (f", pool {ps['resident_lists']} lists resident "
+                    f"({ps['evicted_lists']} evicted, {ps['device_ints']} "
+                    f"device ints)")
+        return out
+
     if args.batch > 1:
         rep = serve_batched(idx, corpus.queries, batch=args.batch,
-                            fuse=args.fuse, warmup=args.warmup, cache=cache)
-        dt, stats = rep["seconds"], rep["stats"]
-        nd = stats.get("n_dispatches", 0)
-        n_batches = max((n + args.batch - 1) // args.batch, 1)
-        print(f"[serve] paper-index --batch {args.batch} ({device.type}"
-              f"{', fused' if args.fuse else ', unfused'}): "
-              f"{n} queries, {n / dt:.1f} q/s ({dt / n * 1e3:.2f} ms/query), "
-              f"{rep['hits']} hits, {nd} dispatches "
-              f"({nd / n_batches:.1f}/batch, "
-              f"{len(stats.get('signatures', ()))} programs, "
-              f"{stats.get('n_compiles', 0)} compiles), "
-              f"{stats.get('decoded_ints', 0) / n:.0f} decoded ints/query "
-              f"({stats.get('skip_folds', 0)} skip folds, "
-              f"{stats.get('resident_hits', 0)} resident hits), "
-              f"{st['bits_per_int']:.2f} bits/int{note()}")
+                            fuse=args.fuse, warmup=args.warmup, cache=cache,
+                            pool=pool, depth=args.pipeline)
+        mode = (f"--pipeline {args.pipeline} (batch {args.batch}, "
+                if args.pipeline else f"--batch {args.batch} (")
+        print(_batched_line(f"{mode}{device.type}, {fused})", n, rep,
+                            n_batches)
+              + f", {st['bits_per_int']:.2f} bits/int{note()}")
+        if rep["timings"] is not None:
+            print(f"[serve]   pipeline depth {args.pipeline}: "
+                  f"{stage_line(rep['timings'])}")
         return rep
-    rep = serve_queries(idx, corpus.queries, cache=cache)
+    rep = serve_queries(idx, corpus.queries, cache=cache, pool=pool)
     dt, stats = rep["seconds"], rep["stats"]
     print(f"[serve] paper-index: {n} queries, {n / dt:.1f} q/s "
           f"({dt / n * 1e3:.2f} ms/query), {rep['hits']} hits, "
@@ -229,15 +447,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", action="store_true",
                     help="with --batch and --fuse: warm the fused family "
                          "ladder with batch.warmup before the timed run")
-    for flag in _LATER_SLICES:
-        kind = {"pipeline": int, "shards": int, "mutate": int, "qps": float,
-                "wal": str, "chaos": str}.get(flag)
-        if kind is None:
-            ap.add_argument(f"--{flag}", action="store_true",
-                            help="not yet ported")
-        else:
-            ap.add_argument(f"--{flag}", type=kind, default=None,
-                            help="not yet ported")
+    ap.add_argument("--resident", action="store_true",
+                    help="paper-index: warm the device-resident index "
+                         "(source.ResidentPool) and serve from it")
+    ap.add_argument("--pipeline", type=int, default=0, metavar="DEPTH",
+                    help="paper-index: pipelined serving with DEPTH batches "
+                         "in flight (implies --resident and, without "
+                         "--batch, --batch 32; 0 = off)")
+    ap.add_argument("--shards", type=int, default=0, metavar="N",
+                    help="paper-index: serve the index on N data-parallel "
+                         "shards (implies --batch 32, --pipeline 2 and "
+                         "--resident where not given; 0 = off)")
+    for flag, kind in (("mutate", int), ("qps", float), ("wal", str),
+                       ("chaos", str)):
+        ap.add_argument(f"--{flag}", type=kind, default=None,
+                        help="not yet ported")
     return ap
 
 

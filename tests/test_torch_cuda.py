@@ -743,6 +743,131 @@ def test_batched_engine_on_the_card_matches_the_cpu(cuda):
 
 
 # --------------------------------------------------------------------------
+# the device-resident index, pipelined serving and the sharded fan-out
+# --------------------------------------------------------------------------
+
+def _resident_builds(cuda, n_queries=16):
+    """The corpora of tests/test_fusion.py built on the card and on the CPU:
+    (name, card index, CPU index, queries)."""
+    from repro_torch.index import builder, corpus as corpus_lib
+    n_docs = 1 << 16
+    skewed = {2: (100.0, [0.8 * (1 << 18) / n_docs,
+                          38000.0 * (1 << 18) / n_docs])}
+    mixed = {k: corpus_lib.TABLE2_CLUEWEB[k] for k in (2, 3, 4, 5)}
+    out = []
+    for name, table, codec, B, parts in (
+            ("skewed", skewed, "bp8-d1", 0, 1),
+            ("mixed", mixed, "fastpfor-d1", 16, 2),
+            ("svb", mixed, "streamvbyte-d1", 16, 2)):
+        corpus = corpus_lib.synthesize(n_docs=n_docs, n_queries=n_queries,
+                                       seed=7, table=table)
+        card, cpu = (builder.build(corpus.postings, n_docs, codec_name=codec,
+                                   B=B, n_parts=parts, device=d)
+                     for d in (cuda, "cpu"))
+        out.append((name, card, cpu, corpus.queries))
+    return out
+
+
+def _same(got, want):
+    assert [g.count for g in got] == [w.count for w in want]
+    assert all(np.array_equal(g.docs, w.docs) for g, w in zip(got, want))
+
+
+def test_pool_batch_launches_without_a_host_sync(cuda):
+    """After ``warm`` and one warm-up batch, ``schedule`` and
+    ``launch_groups`` of a pool-mode batch run under
+    ``set_sync_debug_mode("error")``: nothing between launch and collect
+    waits for the card.  No arena is rebuilt; ``collect_batch`` alone
+    waits, and the answers equal the CPU index's."""
+    from repro_torch.index import batch, source
+    for name, card, cpu, queries in _resident_builds(cuda):
+        pool = source.ResidentPool(device=cuda)
+        pool.warm(card)
+        plan = batch.FusionPlan()
+        batch.execute_batch(card, queries, pool=pool, plan=plan)
+        builds = pool.arena_builds()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            groups = batch.fuse_groups(batch.schedule(card, queries,
+                                                      pool=pool), plan=plan)
+            pending = batch.launch_groups(groups, n_queries=len(queries),
+                                          pool=pool)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pool.arena_builds() == builds, name
+        launched = ops.launches()
+        assert (launched["decoded_fold_batched"]
+                + launched["packed_fold_batched"]) > 0, name
+        _same(batch.collect_batch(pending),
+              batch.execute_batch(cpu, queries))
+
+
+def test_pipeline_depth_two_equals_depth_one_on_the_card(cuda):
+    from repro_torch.index import batch, pipeline, source
+    for name, card, cpu, queries in _resident_builds(cuda):
+        pool = source.ResidentPool(device=cuda)
+        pool.warm(card)
+        want = batch.execute_batch(cpu, queries)
+        one = pipeline.execute_pipelined(card, queries, batch_size=4,
+                                         depth=1, pool=pool)
+        ops.reset_launches()
+        tm = pipeline.StageTimings()
+        two = pipeline.execute_pipelined(card, queries, batch_size=4,
+                                         depth=2, pool=pool, timings=tm)
+        _same(one, want)
+        _same(two, one)
+        assert tm.batches == 4 and tm.dispatch > 0
+        if name == "skewed":
+            assert ops.launches()["packed_fold_batched"] > 0
+
+
+def test_pool_miss_decodes_through_k1_and_k7(cuda, monkeypatch):
+    """``warm`` and a pool miss decode bp, FastPFOR (its unpack) and
+    StreamVByte lists through K1 and K7 on the card, never through the
+    plain versions."""
+    from repro_torch.index import builder, corpus as corpus_lib, source
+    from repro_torch.kernels import bitunpack, svb_decode
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(bitunpack, "unpack_blocks_plain", refuse)
+    monkeypatch.setattr(svb_decode, "decode_svb", refuse)
+    corpus = corpus_lib.synthesize(n_docs=1 << 16, n_queries=8, seed=7)
+    for codec, kernel in (("bp-d1", "unpack_blocks"),
+                          ("fastpfor-d1", "unpack_blocks"),
+                          ("streamvbyte-d1", "unpack_svb_blocks")):
+        idx = builder.build(corpus.postings, corpus.n_docs, codec_name=codec,
+                            B=16, n_parts=2, device=cuda)
+        ops.reset_launches()
+        pool = source.ResidentPool(device=cuda)
+        pool.warm(idx)
+        assert ops.launches()[kernel] > 0, codec
+        assert pool.stats()["resident_lists"] > 0
+        miss = source.ResidentPool(device=cuda)
+        part = idx.parts[0]
+        tid, tp = max(((t, tp) for t, tp in part.terms.items()
+                       if tp.kind == "list" and tp.n >= 1024),
+                      key=lambda x: x[1].n)
+        ops.reset_launches()
+        src = source.resolve(part, tid, tp, None, r_count=None, pool=miss)
+        assert ops.launches()[kernel] > 0, codec
+        assert np.array_equal(src.vals.cpu().numpy(), src.vals_np)
+        assert miss.stats()["misses"] == 1
+
+
+def test_shards_on_one_card_give_equal_answers(cuda):
+    from repro_torch.index import batch, shard
+    for name, card, cpu, queries in _resident_builds(cuda, n_queries=12):
+        want = batch.execute_batch(cpu, queries)
+        for n_shards in (1, 2, 4):
+            sharded = shard.shard_index(card, n_shards)
+            _same(shard.execute_sharded(sharded, queries, batch_size=4,
+                                        depth=2), want)
+
+
+# --------------------------------------------------------------------------
 # K6 / K7: block bit packing and Stream VByte decode
 # --------------------------------------------------------------------------
 

@@ -171,8 +171,7 @@ def test_serve_runs_on_cpu_and_refuses_later_slices(capsys):
                         "--shared-vocab"])
     assert len(rep["results"]) == 4
     assert "paper-index: 4 queries" in capsys.readouterr().out
-    for flags in (["--pipeline", "2"], ["--shards", "2"],
-                  ["--mutate", "10"], ["--qps", "5"], ["--wal", "d"],
-                  ["--chaos", "crash@wal.append.add:1"], ["--resident"]):
+    for flags in (["--mutate", "10"], ["--qps", "5"], ["--wal", "d"],
+                  ["--chaos", "crash@wal.append.add:1"]):
         with pytest.raises(NotImplementedError):
             t_serve.main(["--device", "cpu", *flags])
