@@ -7,8 +7,13 @@ Phases, each fatal on failure, each timed:
      src/repro_torch/kernels/csrc with nvcc (one process per source, all at
      once); a few queries through the serve CLI, sequential and batched,
      and with ``--codec streamvbyte`` and ``--codec auto`` (hits equal to
-     the default fastpfor serve's); ``serve --arch gemma-7b --tokens 4``
-     (the smoke-reduced LM);
+     the default fastpfor serve's), ``--resident``, ``--pipeline 2`` and
+     ``--shards 2``; ``serve --qps 500 --batch 16 --warmup``, ``serve
+     --mutate 120 --delete-frac 0.2 --batch 16`` and ``serve --qps 500
+     --wal DIR --mutate 64 --chaos crash@wal.append.add:40 --batch 16``,
+     each printing its differential line (the last also its chaos and
+     recovery lines); ``serve --arch gemma-7b --tokens 4`` (the
+     smoke-reduced LM);
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32, K = 1, 3, WARPS ± 1 blocks and
      clamped word reads × six modes × rows 32/8, K2a/K2b over M 128…2**16
@@ -47,6 +52,22 @@ Phases, each fatal on failure, each timed:
      3b. batched through ``serve.serve_batched`` / ``batch.execute_batch``
          at batch 32, fused, with one FusionPlan per build warmed by
          ``batch.warmup``;
+     3c. (fastpfor-d1 B16 and B0, streamvbyte-d1 B16) a ResidentPool,
+         pipelined at depths 1 and 2, the engines on the pool and two
+         shards (``resident_paths``);
+     3d. (fastpfor-d1 B16) the live server and the mutable, durable index
+         (``live_paths``): ``server.warm_server`` (twice: the second
+         launches no new signature), drain mode over the 64 queries cycled
+         to 256 requests (its q/s is R), Poisson at 0.5·R and 2·R and with
+         ``transient@launch:0.05`` at 0.5·R (512 requests each: outcomes,
+         p50/p99, flush reasons, retries, ladder steps); then a
+         ``segments.MutableIndex`` of the corpus with 4096 adds, a seal
+         and 409 tombstones, served at 0.5·R while ``merge_async`` runs
+         (K1 on the merge thread, counted apart) and checked against
+         ``builder.build(live_postings())`` + ``engine.query``; then the
+         same stream on the first 2**23 documents with a ``DurableLog``,
+         a crash at the 3000th WAL add, ``recover``, tombstones, a merge
+         and a second recovery (times and bytes on disk);
      every answer is checked against numpy brute force (and the batched
      ones against the sequential ones), and the launch counts of K1–K5 and
      K7 are checked; then one more default pass of each B=16 build and
@@ -95,12 +116,16 @@ exits nonzero, printing no result, where there is no CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -143,6 +168,21 @@ RESIDENT_BUILDS = (("fastpfor-d1", "B16"), ("fastpfor-d1", "B0"),
 RESIDENT_CAPACITY = 1 << 30
 DEPTHS = (1, 2)
 SHARDS = 2
+# phase 3d: the live server and the mutable, durable index on fastpfor-d1
+# B16, at the reference server's defaults (batch 32, depth 2, 2 ms wait, a
+# queue of 256); drain mode serves the 64 queries cycled to LIVE_REQUESTS,
+# each open-loop run OPEN_REQUESTS; the mutable stream is MUTATE_ADDS adds
+# (sealed half way) and a tenth as many tombstones; the durable part runs
+# on the corpus's first DURABLE_DOCS documents (PERF.md §4 says why), and
+# its WAL crash comes at add CRASH_AT
+LIVE = dict(max_batch=32, depth=2, max_wait_ms=2.0, max_queue=256)
+LIVE_REQUESTS = 256
+OPEN_REQUESTS = 512
+CHAOS = "transient@launch:0.05"
+MUTATE_ADDS = 4096
+DURABLE_DOCS = 1 << 23
+CRASH_AT = 3000
+ROOT = Path(__file__).resolve().parent
 SENT = 2**31 - 1
 REPLACES = {
     "unpack_blocks": ("src/repro_torch/kernels/csrc/unpack_blocks.cu",
@@ -1229,6 +1269,345 @@ def in_turns(idx, what, pool, corpus, truth, seq) -> None:
                              f"arena")
 
 
+def _served_equal(what, results, queries, want, truth) -> int:
+    """Every answered request (None where shed or failed) equal to the
+    offline answer ``want[i]`` of ``queries[i]`` and, where ``truth`` is
+    given, to brute force.  Returns the number answered."""
+    n = 0
+    for i, (q, r) in enumerate(zip(queries, results)):
+        if r is None:
+            continue
+        w = want[i]
+        if r.count != w.count or not np.array_equal(r.docs, w.docs):
+            raise AssertionError(f"{what}: request {i} ({q}) differs from "
+                                 f"the offline answer")
+        if truth is not None and (r.count != len(truth[i]) or not
+                                  np.array_equal(r.docs, truth[i][:r.count])):
+            raise AssertionError(f"{what}: request {i} ({q}) differs from "
+                                 f"brute force")
+        n += 1
+    return n
+
+
+def _live_run(what, srv, queries, qps, seed, want, truth) -> dict:
+    """One run of ``srv`` over ``queries`` (open loop at ``qps``, or drain
+    at 0), with fresh metrics and counters and the launch counts set to 0
+    just before it; every answered request checked.  Fatal if a request is
+    left unresolved, a flush failed (``n_errors``), a done request has no
+    answer, a kernel library is built, or the seams saw another number of
+    faults than ``srv.injector`` fired in this run (0 without one).  A
+    failure that is not injected is not caught: it ends the run.  Returns
+    the summary with its launch counts and outcomes."""
+    import asyncio
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import server as server_lib
+    srv.metrics = server_lib.ServerMetrics()
+    srv.stats = {}
+    srv.drain = qps <= 0
+    gaps = server_lib.arrival_gaps(len(queries), qps, "poisson", seed=seed)
+    builds = _build.BUILDS
+    # this thread's launches alone: the schedule/launch seam runs here (a
+    # merge thread may launch at the same time; the collector launches
+    # nothing)
+    fired = len(srv.injector.fired) if srv.injector is not None else 0
+    ops.reset_launches()
+    tally = ops.thread_tally()
+    results = asyncio.run(srv.run(queries, gaps))
+    torch.cuda.synchronize()
+    counts = dict(tally)
+    outs = srv.outcomes()
+    if len(outs) != len(queries) or "pending" in outs:
+        raise AssertionError(f"{what}: a request was left unresolved")
+    if _build.BUILDS != builds:
+        raise AssertionError(f"{what}: nvcc ran while serving")
+    n = _served_equal(what, results, queries, want, truth)
+    s = srv.metrics.summary()
+    if s["n_errors"] or n != s["n_done"]:
+        raise AssertionError(f"{what}: {s['n_errors']} requests errored, "
+                             f"{n} answered of {s['n_done']} done")
+    if srv.injector is not None:
+        fired = len(srv.injector.fired) - fired
+    if s["n_faults"] != fired:
+        raise AssertionError(f"{what}: {s['n_faults']} faults seen, "
+                             f"{fired} injected")
+    # how late the event loop let each arrival in: a flush's schedule and
+    # launch hold the loop, and latency is timed from the due time
+    lag = np.asarray(srv.arrival_lag_s or [0.0]) * 1e3
+    s.update(launches=counts, answered=n, offered_qps=qps,
+             lag_p50_ms=float(np.percentile(lag, 50)),
+             lag_p99_ms=float(np.percentile(lag, 99)),
+             lag_max_ms=float(lag.max()),
+             outcomes={o: outs.count(o) for o in set(outs)},
+             dispatches=srv.stats.get("n_dispatches", 0),
+             compiles=srv.stats.get("n_compiles", 0),
+             _latency_s=list(srv.metrics.latency_s))
+    log(f"{what}: {len(queries)} requests, "
+        + (f"{qps:.2f} q/s offered (Poisson), arrival lag p50 "
+           f"{s['lag_p50_ms']:.3f} / p99 {s['lag_p99_ms']:.3f} / max "
+           f"{s['lag_max_ms']:.3f} ms" if qps > 0 else "drain")
+        + f": {s['n_done']} done / {s['n_shed']} shed / {s['n_timeout']} "
+        f"timeout / {s['n_errors']} error, {n} answers equal to the offline "
+        f"ones" + (" and to brute force" if truth is not None else "")
+        + f"; {s['qps']:.2f} q/s served, latency p50 {s['p50_ms']:.3f} ms / "
+        f"p99 {s['p99_ms']:.3f} ms / p99.9 {s['p999_ms']:.3f} ms, queue wait "
+        f"p99 {s['wait_p99_ms']:.3f} ms; flushes {s['n_flushes']} (full "
+        f"{s['flush_full']}, deadline {s['flush_deadline']}, drain "
+        f"{s['flush_drain']}; aligned {s['aligned_flushes']}, unaligned "
+        f"{s['unaligned_flushes']}), {s['dispatches']} dispatches, "
+        f"{s['compiles']} new program signatures, 0 nvcc builds; faults "
+        f"{s['n_faults']}, retries {s['n_retries']}, degraded flushes "
+        f"{s['degraded_flushes']}; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return s
+
+
+def live_paths(dev, idx, corpus, truth) -> dict:
+    """Phase 3d on the fastpfor-d1 B16 build: the continuous-batching
+    server on a warmed ResidentPool (``warm_server`` twice, drain mode for
+    its rate R, Poisson at 0.5·R and 2·R, chaos at 0.5·R); then a
+    MutableIndex at the corpus's size through MUTATE_ADDS adds, a seal and
+    tombstones, served at 0.5·R while ``merge_async`` runs (K1 launches on
+    the merge thread counted apart), checked against a rebuild; then the
+    durable stream on the first DURABLE_DOCS documents with a WAL crash and
+    recovery.  Every answer is checked.  Returns the launch counts by
+    part."""
+    from repro_torch.index import (batch as batch_lib, builder, durability,
+                                   engine, segments, source)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import faults, server as server_lib
+    queries = corpus.queries
+    n = len(queries)
+    cyc = lambda k: [queries[i % n] for i in range(k)]          # noqa: E731
+    cyc_truth = lambda k: [truth[i % n] for i in range(k)]      # noqa: E731
+    counts, t_all = {}, time.perf_counter()
+
+    pool = source.ResidentPool(capacity_ints=RESIDENT_CAPACITY, device=dev)
+    pool.warm(idx)
+    srv = server_lib.ContinuousBatchingServer(idx, pool=pool, **LIVE)
+    wu = server_lib.warm_server(srv, queries)
+    wu2 = server_lib.warm_server(srv, queries)
+    log(f"phase 3d warm_server: {wu['n_signatures']} signatures, "
+        f"{wu['n_compiles']} compiles in {wu['passes']} passes, "
+        f"{wu['time_s']:.2f} s, converged {wu['converged']}; a second warm: "
+        f"{wu2['n_compiles']} compiles")
+    if not wu["converged"] or wu2["n_compiles"] != 0:
+        raise AssertionError("phase 3d: warm_server did not reach a fixed "
+                             "point")
+    offline = batch_lib.execute_batch(idx, queries, pool=pool, plan=srv.plan)
+    _check_answers("phase 3d offline", offline, truth, corpus)
+    rec = {"warm": wu, "warm_again": wu2}
+    rec["drain"] = _live_run("phase 3d drain", srv, cyc(LIVE_REQUESTS), 0.0,
+                             0, [offline[i % n] for i in range(LIVE_REQUESTS)],
+                             cyc_truth(LIVE_REQUESTS))
+    R = rec["drain"]["qps"]
+    want = [offline[i % n] for i in range(OPEN_REQUESTS)]
+    for name, rate in (("half", 0.5 * R), ("double", 2.0 * R)):
+        rec[name] = _live_run(f"phase 3d Poisson {rate / R:g}·R", srv,
+                              cyc(OPEN_REQUESTS), rate, 1, want,
+                              cyc_truth(OPEN_REQUESTS))
+    injector = faults.FaultInjector(CHAOS, seed=0)
+    csrv = server_lib.ContinuousBatchingServer(idx, pool=pool, plan=srv.plan,
+                                               injector=injector, **LIVE)
+    rec["chaos"] = _live_run(f"phase 3d chaos {CHAOS} at 0.5·R", csrv,
+                             cyc(OPEN_REQUESTS), 0.5 * R, 2, want,
+                             cyc_truth(OPEN_REQUESTS))
+    lad = csrv.ladder
+    rec["chaos"].update(fired=injector.counts(),
+                        degradations=lad.n_degradations,
+                        promotions=lad.n_promotions)
+    log(f"phase 3d chaos: fired {injector.counts()}, ladder "
+        f"{lad.n_degradations} degradations / {lad.n_promotions} "
+        f"promotions, final rung {'fused' if lad.current else 'unfused'}")
+    for k in ("drain", "half", "double", "chaos"):
+        counts[f"live {k}"] = rec[k]["launches"]
+    del srv, csrv, pool
+
+    # the mutable index at the corpus's size, served during a merge
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    mi = segments.MutableIndex.from_postings(
+        corpus.postings, corpus.n_docs, codec_name="fastpfor-d1", B=16,
+        n_parts=2, capacity_ints=RESIDENT_CAPACITY, device=dev)
+    boot_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    terms = sorted({t for q in queries for t in q})
+    stream = [sorted(rng.choice(terms, size=int(rng.integers(1, 4)),
+                                replace=False).tolist())
+              for _ in range(MUTATE_ADDS)]
+    t0 = time.perf_counter()
+    for i, doc in enumerate(stream):
+        mi.add(doc)
+        if i == MUTATE_ADDS // 2:
+            mi.seal()
+    victims = rng.choice(mi.next_doc_id, size=MUTATE_ADDS // 10,
+                         replace=False)
+    for d in victims:
+        mi.delete(int(d))
+    torch.cuda.synchronize()
+    counts["mutable build"] = ops.launches()
+    mut_s = time.perf_counter() - t0
+    msrv = server_lib.ContinuousBatchingServer(mutable=mi, **LIVE)
+    mwu = server_lib.warm_server(msrv, queries)
+    moff = mi.execute_batch(queries)
+    log(f"phase 3d mutable: bootstrapped {corpus.n_docs} docs in "
+        f"{boot_s:.2f} s; +{MUTATE_ADDS} adds (a seal half way) and "
+        f"-{len(victims)} tombstones in {mut_s:.2f} s; counters "
+        f"{mi.counters()}; warm_server {mwu['n_signatures']} signatures in "
+        f"{mwu['time_s']:.2f} s")
+    tally = {}
+
+    def hook(stage):
+        if stage == "snapshot":
+            tally.update(t0=time.perf_counter(), launches=ops.thread_tally())
+        tally[stage] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    thread = mi.merge_async(warm_queries=queries, hook=hook)
+    during = []
+    while thread.is_alive() or not during:
+        during.append(_live_run(
+            f"phase 3d mutable, during merge (pass {len(during)})", msrv,
+            cyc(LIVE_REQUESTS), 0.5 * R, 10 + len(during),
+            [moff[i % n] for i in range(LIVE_REQUESTS)], None))
+        if len(during) >= 64:
+            break
+    thread.join()
+    join_s = time.perf_counter() - t0
+    lat = np.asarray([x for d in during for x in d["_latency_s"]])
+    log(f"phase 3d mutable, during the merge: {len(during)} passes, "
+        f"{lat.size} requests, latency p50 {np.percentile(lat, 50) * 1e3:.3f}"
+        f" ms / p99 {np.percentile(lat, 99) * 1e3:.3f} ms over all of them; "
+        f"served q/s by pass "
+        + ", ".join(f"{d['qps']:.2f}" for d in during))
+    c = mi.counters()
+    stages = {s: round(tally[s] - tally["t0"], 3) for s in
+              ("snapshot", "decode", "build", "stage", "warm", "swap")
+              if s in tally}
+    merge_s = tally.get("swap", t0) - t0
+    log(f"phase 3d merge: {merge_s:.2f} s from merge_async to the swap "
+        f"(stages at {stages} s after the snapshot; joined after "
+        f"{join_s:.2f} s, at the end of a serving pass), counters {c}; "
+        f"launches on the merge thread {tally.get('launches')}; "
+        f"{len(during)} serving passes during it")
+    if (c["n_merges"] != 1 or c["merge_failures"]
+            or c["last_merge_error"] is not None):
+        raise AssertionError(f"phase 3d: the merge failed: {c}")
+    if tally["launches"].get("unpack_blocks", 0) == 0:
+        raise AssertionError("phase 3d: K1 never ran on the merge thread")
+    after = _live_run("phase 3d mutable, after the merge", msrv,
+                      cyc(LIVE_REQUESTS), 0.5 * R, 99,
+                      [moff[i % n] for i in range(LIVE_REQUESTS)], None)
+    t0 = time.perf_counter()
+    live = mi.live_postings()
+    ridx = builder.build(live, mi.next_doc_id, codec_name="fastpfor-d1",
+                         B=16, n_parts=2, device=dev)
+    rebuilt = [engine.query(ridx, q) for q in queries]
+    brute = [engine.brute_force(live, q) for q in queries]
+    final = mi.execute_batch(queries)
+    _served_equal("phase 3d mutable vs the rebuild", final, queries, rebuilt,
+                  brute)
+    _served_equal("phase 3d mutable vs offline before the merge", final,
+                  queries, moff, None)
+    log(f"phase 3d mutable: {n} queries equal to builder.build("
+        f"live_postings()) + engine.query and to brute force "
+        f"({time.perf_counter() - t0:.2f} s)")
+    counts["merge thread"] = tally["launches"]
+    for i, d in enumerate(during):
+        counts[f"during merge {i}"] = d["launches"]
+    counts["after merge"] = after["launches"]
+    rec.update(mutable={"boot_s": boot_s, "mutate_s": mut_s,
+                        "merge_s": merge_s, "stages": stages,
+                        "during_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                        "during_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                        "merge_launches": tally["launches"],
+                        "during": during, "after": after, "counters": c})
+    del msrv, mi, ridx, live
+
+    # the durable stream, on the corpus's first DURABLE_DOCS documents
+    sub = [p[p < DURABLE_DOCS] for p in corpus.postings]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="wal-", dir=ROOT / "build")
+    try:
+        injector = faults.FaultInjector(f"crash@wal.append.add:{CRASH_AT}")
+        kw = dict(codec_name="fastpfor-d1", B=16, n_parts=2,
+                  capacity_ints=RESIDENT_CAPACITY, device=dev)
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        dmi = segments.MutableIndex.from_postings(
+            sub, DURABLE_DOCS, wal=durability.DurableLog(tmp,
+                                                         injector=injector),
+            **kw)
+        boot_s = time.perf_counter() - t0
+        twin = segments.MutableIndex.from_postings(sub, DURABLE_DOCS, **kw)
+        crashed_at = None
+        try:
+            for i, doc in enumerate(stream):
+                dmi.add(doc)
+                twin.add(doc)
+                if i == MUTATE_ADDS // 2:
+                    dmi.seal()
+                    twin.seal()
+        except faults.InjectedCrash:
+            crashed_at = i
+        if crashed_at is None:
+            raise AssertionError("phase 3d: the WAL crash never fired")
+        injector.disarm_all()
+        t0 = time.perf_counter()
+        rmi = segments.MutableIndex.recover(tmp, injector=injector,
+                                            device=dev)
+        rec_s = time.perf_counter() - t0
+        replayed = rmi._wal_replayed
+        _served_equal("phase 3d recovered vs the index that never crashed",
+                      rmi.execute_batch(queries), queries,
+                      twin.execute_batch(queries), None)
+        for d in np.random.default_rng(8).choice(
+                rmi.next_doc_id, size=MUTATE_ADDS // 10, replace=False):
+            rmi.delete(int(d))
+            twin.delete(int(d))
+        rmi.seal()
+        t0 = time.perf_counter()
+        rmi.merge()
+        dmerge_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = segments.MutableIndex.recover(tmp, device=dev)
+        rec2_s = time.perf_counter() - t0
+        live = rmi.live_postings()
+        ridx = builder.build(live, rmi.next_doc_id, codec_name="fastpfor-d1",
+                             B=16, n_parts=2, device=dev)
+        got = rmi.execute_batch(queries)
+        _served_equal("phase 3d durable vs the rebuild", got, queries,
+                      [engine.query(ridx, q) for q in queries],
+                      [engine.brute_force(live, q) for q in queries])
+        _served_equal("phase 3d durable vs the index that never crashed",
+                      got, queries, twin.execute_batch(queries), None)
+        _served_equal("phase 3d second recovery vs the live index",
+                      again.execute_batch(queries), queries, got, None)
+        torch.cuda.synchronize()
+        counts["durable"] = ops.launches()
+        disk = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                   if f.is_file())
+        log(f"phase 3d durable ({DURABLE_DOCS} docs): bootstrapped with "
+            f"its WAL in {boot_s:.2f} s; crash@wal.append.add:{CRASH_AT} "
+            f"cut the stream at add {crashed_at}; recovered in {rec_s:.2f} s "
+            f"({replayed} WAL records replayed), equal to the index that "
+            f"never crashed; then {MUTATE_ADDS // 10} tombstones, a seal and "
+            f"a merge ({dmerge_s:.2f} s), a second recovery in {rec2_s:.2f} "
+            f"s, every answer equal to the rebuild, to brute force and to "
+            f"the live index; {disk} bytes on disk")
+        rec["durable"] = {"docs": DURABLE_DOCS, "boot_s": boot_s,
+                          "crashed_at": crashed_at, "recovery_s": rec_s,
+                          "replayed": replayed, "merge_s": dmerge_s,
+                          "recovery2_s": rec2_s, "bytes_on_disk": disk}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 3d done in {time.perf_counter() - t_all:.1f} s: "
+        + json.dumps({k: {f: x for f, x in v.items() if f[0] != "_"}
+                      for k, v in rec.items()
+                      if k in ("drain", "half", "double", "chaos")},
+                     default=str))
+    return counts
+
+
 def run_main_path(dev, corpus, truth) -> dict:
     """Phases 3 and 3b for every build of ``CELLS``; ``truth`` holds the
     brute-force answers."""
@@ -1270,6 +1649,13 @@ def run_main_path(dev, corpus, truth) -> dict:
                 for c in resident[(codec, wname)].values():
                     for k, v in c.items():
                         totals[k] += v
+            if regime == "default" and (codec, wname) == ("fastpfor-d1",
+                                                          "B16"):
+                t0 = time.perf_counter()
+                for c in live_paths(dev, idx, corpus, truth).values():
+                    for k, v in c.items():
+                        totals[k] += v
+                seconds["live"] = time.perf_counter() - t0
         if wname == "B16":
             t0 = time.perf_counter()
             profile_pass(idx, corpus.queries, codec)
@@ -1751,6 +2137,36 @@ def save_operands(save_dir: str, entries: dict) -> None:
     log(f"phase 4 operands of {sorted(out)} saved to {save_dir}/operands.pt")
 
 
+def serve_live_cli() -> None:
+    """Phase 1's live server, mutable index and durable index through the
+    serve CLI, at its default size; each must print its differential line,
+    the durable one also its chaos and recovery lines."""
+    from repro_torch.launch import serve
+    (ROOT / "build").mkdir(exist_ok=True)
+    wal_dir = tempfile.mkdtemp(prefix="wal-", dir=ROOT / "build")
+    try:
+        for flags, lines in (
+                (["--qps", "500", "--batch", "16", "--warmup"],
+                 ["[serve] differential check:"]),
+                (["--mutate", "120", "--delete-frac", "0.2", "--batch", "16"],
+                 ["[serve] differential check:"]),
+                (["--qps", "500", "--wal", str(Path(wal_dir) / "wal"),
+                  "--mutate", "64", "--chaos", "crash@wal.append.add:40",
+                  "--batch", "16"],
+                 ["[serve] chaos: injected crash",
+                  "[serve] differential check:", "[serve] recovery check:"])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                serve.main(flags)
+            print(out.getvalue(), end="", flush=True)
+            for line in lines:
+                if line not in out.getvalue():
+                    raise AssertionError(f"serve {' '.join(flags)} printed "
+                                         f"no {line!r} line")
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                             "CUDA card.")
@@ -1801,6 +2217,7 @@ def main(argv=None) -> int:
         if alt["hits"] != seq["hits"]:
             raise AssertionError(f"serve {' '.join(flags)} gave other hits "
                                  f"than the sequential serve")
+    serve_live_cli()
     lm = serve.main(["--arch", LM_ARCH, "--tokens", "4"])
     if tuple(lm["tokens"].shape) != (4, 4):
         raise AssertionError(f"serve --arch {LM_ARCH} gave tokens of shape "

@@ -140,15 +140,18 @@ def encode(values: np.ndarray, mode: str = "d1",
 def decode_device(flat_words, widths, offsets, seeds, exc_pos, exc_add,
                   mode: str, block_rows: int) -> torch.Tensor:
     """unpack (K1, mode "none") → patch → prefix sum.  Returns (K, R, 128)
-    int32 bit patterns.  Positions outside [0, K·R·128) drop, as the
-    reference's ``mode="drop"``."""
+    int32 bit patterns.  As the reference's ``.at[exc_pos].add(...,
+    mode="drop")``, a position p in [−L, 0) (L = K·R·128) patches p + L,
+    and only p < −L or p ≥ L drops."""
     from repro_torch.kernels import bitunpack
     d = bitunpack.unpack_blocks(flat_words, offsets, widths, seeds, "none",
                                 block_rows)
     K = widths.shape[0]
     dflat = to_u32(d).reshape(-1)
+    L = dflat.shape[0]
     pos = exc_pos.to(torch.int64)
-    ok = (pos >= 0) & (pos < dflat.shape[0])
+    pos = torch.where(pos < 0, pos + L, pos)
+    ok = (pos >= 0) & (pos < L)
     # dropped entries add 0 at position 0: a boolean index would read the
     # count of kept entries back to the host
     dflat = dflat.index_add(0, torch.where(ok, pos, 0),

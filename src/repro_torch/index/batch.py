@@ -785,7 +785,10 @@ def accumulate_launch_stats(stats: dict | None, groups, n_dispatches: int):
 def collect_batch(pending: PendingBatch) -> list[QueryResult]:
     """Wait for each chunk's result copy (its event alone) and re-assemble
     per-query results in part order — byte-identical to ``engine.query``.
-    Shard-pad slots (None) are skipped."""
+    Shard-pad slots (None) are skipped.  It launches nothing and reads
+    only pinned host memory, so it may run on another thread than the
+    launches (the live server's collector); an event's wait does not
+    depend on that thread's current device."""
     per_query: list[list[tuple[int, np.ndarray]]] = \
         [[] for _ in range(pending.n_queries)]
     counts = [0] * pending.n_queries

@@ -11,8 +11,11 @@ Each C entry point takes its tensors and the CUDA stream as ``void*``
 ``cudaGetLastError()``; ``check`` raises when that is not 0.
 
 ``LAUNCHES`` counts kernel launches by kernel name.  A wrapper adds one
-where it launches its kernel and nowhere else.  ``BUILDS`` counts the
-libraries this process compiled with ``nvcc``.
+where it launches its kernel and nowhere else; the count is taken under a
+lock, since a background thread (the mutable index's merge) launches while
+the serving thread does, and a thread may also keep its own tally
+(``thread_tally``).  ``BUILDS`` counts the libraries this process compiled
+with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -165,8 +168,24 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
 
 
+_count_lock = threading.Lock()
+_thread = threading.local()
+
+
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+    tally = getattr(_thread, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+
+
+def thread_tally() -> dict:
+    """Start a tally of the calling thread's launches by kernel name and
+    return it: the dict fills as this thread launches, until the thread
+    starts another."""
+    _thread.tally = {}
+    return _thread.tally
 
 
 def kernel_path(*tensors: torch.Tensor) -> bool:

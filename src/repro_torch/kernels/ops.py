@@ -14,7 +14,8 @@ the fold entry points have no ``_fold_scan`` fallback: every CUDA fold stack
 goes to K4 or K5 whole.
 
 ``launches()`` reads the per-kernel launch counts, ``flash_routes()`` K8's
-calls by route, ``reset_launches()`` sets both to 0.
+calls by route, ``reset_launches()`` sets both to 0; ``thread_tally()``
+counts the calling thread's launches alone.
 """
 
 from __future__ import annotations
@@ -52,10 +53,14 @@ def launches() -> dict[str, int]:
 
 def reset_launches() -> None:
     """Set every launch count, and K8's count of calls by route, to 0."""
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    with _build._count_lock:
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
     for k in _flash_attention.ROUTES:
         _flash_attention.ROUTES[k] = 0
+
+
+thread_tally = _build.thread_tally
 
 
 def flash_routes() -> dict[str, int]:

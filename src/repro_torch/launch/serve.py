@@ -1,10 +1,12 @@
 """Serving launcher for the port: conjunctive-query serving, sequential or
-batched, and greedy generation on the dense LMs.
+batched, live or on a mutable, durable index, and greedy generation on the
+dense LMs.
 
 Port of the paper-index path of ``src/repro/launch/serve.py``
 (``coerce_index_flags``, ``serve_index`` with its sequential, ``--batch``,
-``--resident``, ``--pipeline`` and ``--shards`` branches) and of its LM
-path (``serve_lm``).
+``--resident``, ``--pipeline``, ``--shards``, ``--qps`` and ``--mutate``
+branches, ``serve_index_live``, ``serve_index_mutable`` and their
+``--wal`` / ``--chaos`` helpers) and of its LM path (``serve_lm``).
 It synthesizes the corpus, builds the HYB+M2 index (B=16, two parts) on the
 device, warms, and serves every query once more under the clock.
 ``--batch N`` (N > 1) serves through the batched engine
@@ -21,6 +23,20 @@ flags on, with a warning each (``--pipeline`` implies ``--batch 32`` and
 ``--resident``; ``--shards`` also ``--pipeline 2``).  Hits equal the
 sequential serve's in every mode.
 
+``--qps Q`` serves the queries open loop at Q requests/s through the
+continuous-batching server (``launch.server``), with ``--timeout-ms``
+deadlines and ``--chaos`` faults, and checks every answered request
+against direct execution.  ``--mutate N`` bootstraps a
+``segments.MutableIndex``, applies N adds (sealing half way) and
+``--delete-frac``·N tombstones, serves while a background merge runs, and
+checks every answer against a rebuild from scratch; with ``--qps`` the
+live server serves it.  ``--wal DIR`` journals every mutation in a
+``durability.DurableLog`` and ends with a recovery check (an injected
+``--chaos crash@wal.*`` cuts the stream, recovers and serves on).
+``--seed`` seeds the fault schedule and the arrival gaps, as the
+reference's does; ``--corpus-seed`` seeds the corpus (the reference fixes
+it at 5).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 20 --cache \\
       --shared-vocab --device cpu
@@ -29,6 +45,12 @@ sequential serve's in every mode.
   PYTHONPATH=src python -m repro_torch.launch.serve --resident --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --pipeline 2
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --qps 500 --batch 16 \\
+      --warmup
+  PYTHONPATH=src python -m repro_torch.launch.serve --mutate 120 \\
+      --delete-frac 0.2 --batch 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --qps 500 --wal DIR \\
+      --mutate 64 --chaos crash@wal.append.add:40 --batch 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --device cpu --tokens 4
 
@@ -39,8 +61,7 @@ and greedy decode on the smoke-reduced model, as the reference's
 other archs of the reference (MoE, recsys, GNN) raise "not yet ported".
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
-there is no card.  The flags of later slices (``--mutate``, ``--qps``,
-``--wal``, ``--chaos``) raise "not yet ported".
+there is no card.
 """
 
 from __future__ import annotations
@@ -50,7 +71,9 @@ import time
 
 import torch
 
-from repro_torch.configs.base import get_config
+import numpy as np
+
+from repro_torch.configs.base import NOT_YET_PORTED, get_config
 from repro_torch.kernels import ops
 
 # --codec flag value -> builder codec name ("auto" goes to the storage
@@ -58,22 +81,22 @@ from repro_torch.kernels import ops
 _CODEC_NAMES = {"auto": "auto", "bitpack": "bp-d1",
                 "streamvbyte": "streamvbyte-d1", "composite": "composite-d1",
                 "fastpfor": "fastpfor-d1", "varint": "varint"}
-_LATER_SLICES = ("mutate", "qps", "wal", "chaos")
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag of a later slice."""
-    for flag in _LATER_SLICES:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not yet ported")
+    """Raise NotImplementedError for an arch the port does not have yet
+    (``configs.base.NOT_YET_PORTED``: the reference's MoE, recsys and GNN
+    archs).  Every flag of the reference's serve is ported."""
+    arch = getattr(args, "arch", "paper-index")
+    if arch in NOT_YET_PORTED:
+        raise NotImplementedError(f"arch {arch!r} ({NOT_YET_PORTED[arch]}) "
+                                  f"is not yet ported")
 
 
 def coerce_index_flags(args) -> list[str]:
     """Normalise paper-index flag interactions, returning one warning line
     per coerced or ignored flag (the reference's table, whole).  ``args``
-    is changed in place so the serving paths read the effective values.
-    The live-traffic and mutable-index branches only rewrite flags: those
-    flags are refused afterwards by ``check_ported``."""
+    is changed in place so the serving paths read the effective values."""
     warnings = []
     if getattr(args, "wal", None) and not getattr(args, "mutate", 0):
         warnings.append("--wal implies the mutable index: --mutate 0 -> 256")
@@ -313,8 +336,12 @@ def serve_index(args, *, n_docs: int = 1 << 16) -> dict:
     check_ported(args)
     device = ops.resolve_device(args.device)
     corpus = corpus_lib.synthesize(n_docs=n_docs, n_queries=args.queries,
-                                   seed=args.seed,
+                                   seed=args.corpus_seed,
                                    shared_vocab=args.shared_vocab)
+    if args.qps:
+        return serve_index_live(args, corpus, device)
+    if args.mutate:
+        return serve_index_mutable(args, corpus, device)
     codec_name = _CODEC_NAMES[args.codec]
     n = len(corpus.queries)
     n_batches = max((n + args.batch - 1) // max(args.batch, 1), 1)
@@ -390,6 +417,263 @@ def serve_index(args, *, n_docs: int = 1 << 16) -> dict:
     return rep
 
 
+def _injector(args):
+    """The chaos FaultInjector from --chaos (None when unarmed)."""
+    spec = getattr(args, "chaos", None)
+    if not spec:
+        return None
+    from repro_torch.launch import faults as faults_lib
+    return faults_lib.FaultInjector(spec, seed=args.seed)
+
+
+def _bootstrap_mutable(args, corpus, device, injector=None):
+    """The --mutate bootstrap: build the MutableIndex on ``device`` (with a
+    WAL under --wal), apply the add/seal/delete stream, and — if an
+    injected crash fires mid-stream — recover from the WAL directory and go
+    on with the recovered state.  Returns (index, tombstones asked for)."""
+    from repro_torch.index import segments
+    log = None
+    if getattr(args, "wal", None):
+        from repro_torch.index import durability
+        log = durability.DurableLog(args.wal, injector=injector)
+    n_mut = args.mutate
+    del_frac = 0.1 if args.delete_frac is None else args.delete_frac
+    t0 = time.perf_counter()
+    mi = segments.MutableIndex.from_postings(
+        corpus.postings, corpus.n_docs, codec_name=_CODEC_NAMES[args.codec],
+        B=16, n_parts=2, n_shards=args.shards, wal=log, device=device)
+    print(f"[serve] mutable index bootstrapped: {corpus.n_docs} docs "
+          f"sealed in {time.perf_counter() - t0:.2f}s on {device}"
+          + (f", {args.shards} shards" if args.shards else "")
+          + (f", WAL at {args.wal}" if log is not None else ""))
+
+    queries = corpus.queries
+    rng = np.random.default_rng(7)
+    term_pool = sorted({t for q in queries for t in q})
+    n_del = int(del_frac * n_mut)
+    crashed = False
+    try:
+        for i in range(n_mut):
+            k = int(rng.integers(1, 4))
+            mi.add(sorted(rng.choice(term_pool, size=k,
+                                     replace=False).tolist()))
+            if n_mut > 1 and i == n_mut // 2:
+                mi.seal()               # live stream: seal mid-mutation
+        if n_del:
+            for d in rng.choice(mi.next_doc_id, size=n_del, replace=False):
+                mi.delete(int(d))
+    except Exception as e:              # noqa: BLE001 — the chaos crash path
+        from repro_torch.launch import faults as faults_lib
+        if not isinstance(e, faults_lib.InjectedCrash) or log is None:
+            raise
+        # the injected "process death": what was not applied is lost;
+        # recovery replays snapshot + WAL tail and serving resumes
+        print(f"[serve] chaos: {e} — recovering from {args.wal}")
+        crashed = True
+        injector.disarm_all()
+        t0 = time.perf_counter()
+        mi = segments.MutableIndex.recover(args.wal, injector=injector,
+                                           device=device)
+        print(f"[serve] recovered in {time.perf_counter() - t0:.2f}s: "
+              f"replayed {mi._wal_replayed} WAL records, "
+              f"{mi.counters()['n_segments']} segments, "
+              f"{mi.counters()['mutable_docs']} mutable docs")
+    c = mi.counters()
+    stream = (f"crash cut the +{n_mut}/-{n_del} mutation stream short"
+              if crashed else f"+{n_mut} docs / -{n_del} tombstones")
+    print(f"[serve] mutable index: {stream} -> "
+          f"generation {c['generation']}, {c['n_segments']} sealed "
+          f"segments + {c['mutable_docs']} mutable docs, "
+          f"{c['tombstones']} tombstones, {c['n_seals']} seals, "
+          f"vocab {c['vocab']}")
+    return mi, n_del
+
+
+def _recovery_differential(args, mi, queries, device) -> float:
+    """--wal epilogue: recover a second index from the durable directory
+    and assert it answers as the live one.  Returns the recovery seconds."""
+    from repro_torch.index import segments
+    t0 = time.perf_counter()
+    ri = segments.MutableIndex.recover(args.wal, device=device)
+    dt = time.perf_counter() - t0
+    got = mi.execute_batch(queries, fuse=args.fuse)
+    rec = ri.execute_batch(queries, fuse=args.fuse)
+    for q, g, r in zip(queries, got, rec):
+        assert g.count == r.count and np.array_equal(g.docs, r.docs), \
+            f"recovery mismatch on {q}"
+    print(f"[serve] recovery check: replayed {ri._wal_replayed} WAL "
+          f"records in {dt:.2f}s; {len(queries)} queries byte-identical "
+          f"to the live index")
+    return dt
+
+
+def serve_index_mutable(args, corpus, device) -> dict:
+    """--mutate N: live-corpus serving over the segmented mutable index.
+
+    Bootstraps a MutableIndex from the corpus, applies N adds (with a
+    mid-stream seal) and ``--delete-frac``·N tombstones, warms to the
+    signature fixed point, then serves the query stream in a loop while a
+    background merge compacts the sealed segments (the printed q/s is
+    throughput during the merge), and ends with a differential check
+    against a rebuild from scratch; with --wal also a recovery check."""
+    from repro_torch.index import batch as batch_lib, builder, engine
+    injector = _injector(args)
+    n_mut = args.mutate
+    del_frac = 0.1 if args.delete_frac is None else args.delete_frac
+    mi, n_del = _bootstrap_mutable(args, corpus, device, injector)
+    queries = corpus.queries
+    fused = "fused" if args.fuse else "unfused"
+
+    def run_all(stats=None):
+        stats = {} if stats is None else stats
+        out = []
+        for lo in range(0, len(queries), args.batch):
+            out.extend(mi.execute_batch(queries[lo: lo + args.batch],
+                                        fuse=args.fuse, stats=stats))
+        return out, stats
+
+    t0 = time.perf_counter()
+    c0 = batch_lib._compile_count()
+    n_sigs, passes, converged = batch_lib.warm_to_fixed_point(
+        lambda s: run_all(stats=s))
+    if args.warmup:
+        print(f"[serve] warmup: {batch_lib._compile_count() - c0} compiles "
+              f"over {n_sigs} signatures in {passes} passes "
+              f"({time.perf_counter() - t0:.2f}s)")
+    if not converged:
+        print("[serve] warning: signature warm loop stopped at max_passes "
+              "without converging — the timed run may launch new programs")
+
+    # timed loop under a live background merge: the candidate generation
+    # pre-warms through the shared sticky plan before the swap; --chaos
+    # merge.* points fire through the stage hook
+    merge_hook = injector.merge_hook() if injector is not None else None
+    merge_thread = mi.merge_async(warm_queries=queries, hook=merge_hook)
+    stats: dict = {}
+    t0 = time.perf_counter()
+    loops = 0
+    while loops == 0 or (merge_thread.is_alive() and loops < 64):
+        results, _ = run_all(stats=stats)
+        loops += 1
+    dt = time.perf_counter() - t0
+    merge_thread.join()
+    n_q = loops * len(queries)
+    hits = sum(r.count for r in results)
+    c = mi.counters()
+    print(f"[serve] paper-index --mutate {n_mut} "
+          f"--delete-frac {del_frac:g} ({device.type}, {fused}, "
+          f"batch {args.batch}): {n_q} queries in {loops} loops during "
+          f"background merge, {n_q / dt:.1f} q/s "
+          f"({dt / n_q * 1e3:.2f} ms/query), {hits} hits, "
+          f"{stats.get('n_compiles', 0)} compiles")
+    print(f"[serve]   post-merge: generation {c['generation']}, "
+          f"{c['n_segments']} segments, {c['n_merges']} merges, "
+          f"{c['next_doc_id']} doc ids ({c['tombstones']} tombstoned)")
+    if c.get("merge_failures"):
+        print(f"[serve]   merge retries: {c['merge_failures']} failed "
+              f"attempts, last error: {c['last_merge_error'] or 'cleared'}")
+    # merge_async retries whatever failed; only --chaos merge.* faults may
+    injected = (sum(n for k, n in injector.counts().items() if "@merge." in k)
+                if injector is not None else 0)
+    if c["merge_failures"] > injected:
+        raise RuntimeError(
+            f"the background merge failed {c['merge_failures']} times, "
+            f"{injected} of them injected; last error: "
+            f"{c['last_merge_error'] or 'cleared'}")
+
+    # differential: the served state against a rebuild from scratch
+    idx = builder.build(mi.live_postings(), max(mi.next_doc_id, 1),
+                        codec_name=_CODEC_NAMES[args.codec], B=16, n_parts=2,
+                        device=device)
+    final, _ = run_all()
+    for q, got in zip(queries, final):
+        want = engine.query(idx, q)
+        assert got.count == want.count and \
+            np.array_equal(got.docs, want.docs), f"mismatch on {q}"
+    print(f"[serve] differential check: {len(queries)} queries "
+          f"byte-identical to rebuild-from-scratch")
+    rep = {"results": final, "hits": sum(r.count for r in final),
+           "seconds": dt, "stats": stats, "counters": c}
+    if getattr(args, "wal", None):
+        rep["recovery_s"] = _recovery_differential(args, mi, queries, device)
+    if injector is not None:
+        print(f"[serve] chaos: {injector.counts()}")
+    return rep
+
+
+def serve_index_live(args, corpus, device) -> dict:
+    """--qps Q: open-loop live serving through the continuous-batching
+    server (``launch.server``) with per-request deadlines (--timeout-ms),
+    injected faults (--chaos) and a durable mutable corpus (--mutate,
+    --wal).  Every submitted request resolves to exactly one of done /
+    shed / timeout / error; the epilogue audits that, checks every answered
+    request against direct execution on the final state, and under --wal
+    runs the recovery check."""
+    from repro_torch.index import batch as batch_lib, builder, source
+    from repro_torch.launch import server as server_lib
+    injector = _injector(args)
+    queries = corpus.queries
+    kw = dict(max_batch=args.batch, fuse=args.fuse,
+              timeout_ms=getattr(args, "timeout_ms", None),
+              injector=injector)
+    mi = idx = None
+    if getattr(args, "mutate", 0):
+        mi, _ = _bootstrap_mutable(args, corpus, device, injector)
+        kw["mutable"] = mi
+    else:
+        idx = builder.build(corpus.postings, corpus.n_docs,
+                            codec_name=_CODEC_NAMES[args.codec], B=16,
+                            n_parts=2, device=device)
+        print(_codec_line(args.codec, idx, device))
+        if args.resident:
+            pool = source.ResidentPool(device=device)
+            pool.warm(idx)
+            kw["pool"] = pool
+    results, server = server_lib.serve_open_loop(
+        idx, queries, qps=args.qps, warmup=args.warmup,
+        seed=args.seed, **kw)
+    s = server.metrics.summary()
+    outs = server.outcomes()
+    assert len(outs) == len(queries) and "pending" not in outs, \
+        "unresolved requests after run()"
+    lad = server.ladder
+    print(f"[serve] paper-index --qps {args.qps:g} ({device.type}"
+          f"{', fused' if args.fuse else ', unfused'}, "
+          f"batch {args.batch}"
+          + (f", timeout {args.timeout_ms:g} ms"
+             if getattr(args, "timeout_ms", None) is not None else "")
+          + f"): {s['n_done']} done / {s['n_shed']} shed / "
+          f"{s['n_timeout']} timed out / {s['n_errors']} errored, "
+          f"{s['qps']:.1f} q/s, p50 {s['p50_ms']:.2f} ms, "
+          f"p99 {s['p99_ms']:.2f} ms")
+    print(f"[serve]   resilience: {s['n_faults']} faults, "
+          f"{s['n_retries']} retries, {s['degraded_flushes']} degraded "
+          f"flushes, {lad.n_degradations} degradations / "
+          f"{lad.n_promotions} promotions, final rung "
+          f"{'fused' if lad.current else 'unfused'}")
+    if injector is not None:
+        print(f"[serve] chaos: {injector.counts()}")
+    # every answered request must match a clean re-execution against the
+    # same (final) corpus state, degraded or retried flushes included
+    served = [(q, r) for q, r in zip(queries, results) if r is not None]
+    if served:
+        qs = [q for q, _ in served]
+        if mi is not None:
+            want = mi.execute_batch(qs, fuse=args.fuse)
+        else:
+            want = batch_lib.execute_batch(idx, qs, fuse=args.fuse)
+        for (q, got), w in zip(served, want):
+            assert got.count == w.count and \
+                np.array_equal(got.docs, w.docs), f"mismatch on {q}"
+        print(f"[serve] differential check: {len(served)} answered "
+              f"queries byte-identical to direct execution")
+    rep = {"results": results, "hits": sum(r.count for _, r in served),
+           "summary": s, "outcomes": outs}
+    if mi is not None and getattr(args, "wal", None):
+        rep["recovery_s"] = _recovery_differential(args, mi, queries, device)
+    return rep
+
+
 def serve_lm(args, spec) -> dict:
     """Prefill + greedy decode of ``--tokens`` tokens on the smoke-reduced
     ``spec``; prints the reference's summary line and returns the tokens
@@ -429,7 +713,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve with a DecodeCache and report its hit rate")
     ap.add_argument("--shared-vocab", action="store_true",
                     help="Zipf-shared query term ids (realistic cache hits)")
-    ap.add_argument("--seed", type=int, default=5,
+    ap.add_argument("--seed", type=int, default=0,
+                    help="paper-index: seed for --chaos fault schedules "
+                         "and --qps arrival gaps")
+    ap.add_argument("--corpus-seed", type=int, default=5,
                     help="corpus and query-log seed (the reference's serve "
                          "fixes it at 5)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -458,10 +745,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paper-index: serve the index on N data-parallel "
                          "shards (implies --batch 32, --pipeline 2 and "
                          "--resident where not given; 0 = off)")
-    for flag, kind in (("mutate", int), ("qps", float), ("wal", str),
-                       ("chaos", str)):
-        ap.add_argument(f"--{flag}", type=kind, default=None,
-                        help="not yet ported")
+    ap.add_argument("--mutate", type=int, default=0, metavar="N",
+                    help="paper-index: live corpus — apply N adds (with a "
+                         "mid-stream seal) and --delete-frac tombstones to "
+                         "a segmented mutable index, serve during a "
+                         "background merge and check against a rebuild "
+                         "(implies --batch 32 and --resident)")
+    ap.add_argument("--delete-frac", type=float, default=None, metavar="F",
+                    help="paper-index: fraction of --mutate adds to "
+                         "tombstone (default 0.1; needs --mutate)")
+    ap.add_argument("--wal", default=None, metavar="DIR",
+                    help="paper-index: durable mutable index — journal "
+                         "every add/delete/seal to a write-ahead log in "
+                         "DIR, checkpoint snapshots, and end with a "
+                         "recovery check (implies --mutate 256)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="paper-index: deterministic fault injection, "
+                         "comma-separated kind@point[:arg] rules, e.g. "
+                         "'crash@wal.append.add:40' or "
+                         "'transient@launch:0.05' (launch/faults.py)")
+    ap.add_argument("--timeout-ms", type=float, default=None, metavar="MS",
+                    help="paper-index: per-request deadline for --qps live "
+                         "serving")
+    ap.add_argument("--qps", type=float, default=0.0, metavar="Q",
+                    help="paper-index: open-loop live serving at offered "
+                         "load Q through the continuous-batching server "
+                         "(0 = offline; composes with --mutate, --wal, "
+                         "--chaos, --timeout-ms)")
     return ap
 
 

@@ -91,6 +91,31 @@ def test_fastpfor_encode_and_decode(mode):
     assert np.array_equal(t_pf.decode_np(port), x.astype(np.uint32))
 
 
+@pytest.mark.parametrize("mode", ["d1", "none"])
+def test_fastpfor_decode_device_wraps_negative_positions(mode):
+    """Hand-made exception positions −L, −1, L and −L−1 (L = K·R·128): the
+    reference's ``mode="drop"`` patches −L at 0 and −1 at L − 1 and drops
+    the other two; the port must do the same."""
+    x = np.cumsum(np.random.default_rng(0).integers(1, 50, 1000))
+    ref = r_pf.encode(x.astype(np.int64), mode=mode)
+    port = t_pf.encode(x.astype(np.int64), mode=mode)
+    L = int(ref.widths.shape[0]) * ref.block_rows * 128
+    pos = np.array([-L, -1, L, -L - 1], np.int32)
+    add = np.array([5, 7, 11, 13], np.uint32)
+    seeds = np.concatenate([[0], np.asarray(ref.maxes)[:-1]]).astype(np.uint32)
+    want = r_pf.decode_device(ref.flat_words, ref.widths, ref.offsets,
+                              jnp.asarray(seeds), jnp.asarray(pos),
+                              jnp.asarray(add), mode, ref.block_rows)
+    got = t_pf.decode_device(port.flat_words, port.widths, port.offsets,
+                             _t(seeds), _t(pos), _t(add), mode,
+                             port.block_rows)
+    assert np.array_equal(_u32(got), np.asarray(want))
+    plain = t_pf.decode_device(port.flat_words, port.widths, port.offsets,
+                               _t(seeds), _t(pos[:0]), _t(add[:0]), mode,
+                               port.block_rows)
+    assert not np.array_equal(_u32(got), _u32(plain))     # the patch landed
+
+
 @pytest.mark.parametrize("fam", ["bp", "bp8", "fastpfor"])
 @pytest.mark.parametrize("mode", STRIDE_MODES)
 def test_extremes_32bit_roundtrip(fam, mode):

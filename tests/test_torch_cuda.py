@@ -868,6 +868,133 @@ def test_shards_on_one_card_give_equal_answers(cuda):
 
 
 # --------------------------------------------------------------------------
+# the live server and the mutable, durable index on the card
+# --------------------------------------------------------------------------
+
+def _mutable_twins(cuda, corpus, n_adds=40, n_dels=8, seal_at=20):
+    """The same MutableIndex on the card and on the CPU, through the same
+    add / seal / delete stream."""
+    from repro_torch.index import segments
+    twins = [segments.MutableIndex.from_postings(
+        corpus.postings, corpus.n_docs, codec_name="fastpfor-d1", B=16,
+        n_parts=2, device=d) for d in (cuda, "cpu")]
+    rng = np.random.default_rng(3)
+    terms = sorted({t for q in corpus.queries for t in q})
+    for i in range(n_adds):
+        doc = sorted(rng.choice(terms, size=int(rng.integers(1, 4)),
+                                replace=False).tolist())
+        assert len({mi.add(doc) for mi in twins}) == 1
+        if i == seal_at:
+            for mi in twins:
+                mi.seal()
+    for d in rng.choice(twins[0].next_doc_id, size=n_dels, replace=False):
+        for mi in twins:
+            mi.delete(int(d))
+    return twins
+
+
+def test_live_server_on_the_card_matches_the_cpu(cuda):
+    """The server over a pool and over a MutableIndex on the card: drain
+    and Poisson answers equal the CPU port's, a second warm launches no
+    new signature, and after warming the server's ``_schedule`` and
+    ``_launch`` run under ``set_sync_debug_mode("error")``."""
+    import asyncio
+    from repro_torch.index import batch, corpus as corpus_lib, source
+    from repro_torch.launch import server as server_lib
+    for name, card, cpu, queries in _resident_builds(cuda):
+        pool = source.ResidentPool(device=cuda)
+        pool.warm(card)
+        want = batch.execute_batch(cpu, queries)
+        stats: dict = {}
+        srv = server_lib.ContinuousBatchingServer(card, pool=pool,
+                                                  max_batch=4, stats=stats)
+        assert server_lib.warm_server(srv, queries)["converged"]
+        assert server_lib.warm_server(srv, queries)["n_compiles"] == 0
+        _same(asyncio.run(srv.run(queries)), want)
+        gaps = server_lib.arrival_gaps(len(queries), 2000.0, seed=1)
+        srv.drain = False
+        _same(asyncio.run(srv.run(queries, gaps)), want)
+        assert stats.get("n_compiles", 0) == 0, name
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = srv._launch(srv._schedule(queries[:4], {}), 4, {})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _same(batch.collect_batch(pending), want[:4])
+    corpus = corpus_lib.synthesize(n_docs=1 << 15, n_queries=12, seed=7)
+    mi, twin = _mutable_twins(cuda, corpus)
+    srv = server_lib.ContinuousBatchingServer(mutable=mi, max_batch=4)
+    server_lib.warm_server(srv, corpus.queries)
+    want = twin.execute_batch(corpus.queries)
+    _same(asyncio.run(srv.run(corpus.queries)), want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        snap = srv._snapshot()
+        pending = srv._launch(srv._schedule(corpus.queries[:4], {},
+                                            snap=snap), 4, {}, snap=snap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same(mi.finalize(snap, corpus.queries[:4], batch.collect_batch(pending)),
+          want[:4])
+
+
+def test_merge_async_on_the_card_while_flushes_launch(cuda):
+    """A background merge on the card while the serving thread launches:
+    every pass during the merge, and after the swap, answers as the CPU
+    twin; the merge thread decodes the live postings through K1 (its own
+    launch tally), and the rebuild check holds."""
+    from repro_torch.index import builder, corpus as corpus_lib, engine
+    corpus = corpus_lib.synthesize(n_docs=1 << 16, n_queries=16, seed=7)
+    mi, twin = _mutable_twins(cuda, corpus)
+    queries = corpus.queries
+    want = twin.execute_batch(queries)
+    mi.warm(queries)
+    tally = {}
+
+    def hook(stage):
+        if stage == "snapshot":
+            tally["merge"] = ops.thread_tally()
+
+    thread = mi.merge_async(warm_queries=queries, hook=hook)
+    passes = 0
+    while thread.is_alive() or passes == 0:
+        _same(mi.execute_batch(queries), want)
+        passes += 1
+    thread.join()
+    c = mi.counters()
+    assert c["n_merges"] == 1 and c["last_merge_error"] is None
+    assert tally["merge"].get("unpack_blocks", 0) > 0
+    _same(mi.execute_batch(queries), want)
+    idx = builder.build(mi.live_postings(), mi.next_doc_id,
+                        codec_name="fastpfor-d1", B=16, n_parts=2,
+                        device="cpu")
+    _same(mi.execute_batch(queries), [engine.query(idx, q) for q in queries])
+
+
+def test_collect_on_the_worker_thread_with_two_shards(cuda):
+    """Two shards (on two cards where there are two, else both on one):
+    ``collect_batch`` on a one-worker executor thread, entering each copy's
+    device, gives the CPU's answers, as does the server over them."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.index import batch, shard
+    from repro_torch.launch import server as server_lib
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(2)] if n_cards > 1
+               else [cuda])
+    for name, card, cpu, queries in _resident_builds(cuda, n_queries=12):
+        want = batch.execute_batch(cpu, queries)
+        sharded = shard.shard_index(card, 2, devices=devices)
+        groups = batch.schedule(card, queries, pool=sharded.pool_map)
+        pending = shard.launch_groups_sharded(sharded, groups,
+                                              n_queries=len(queries))
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            _same(ex.submit(batch.collect_batch, pending).result(), want)
+        results, _ = server_lib.serve_open_loop(
+            card, queries, qps=0.0, sharded=sharded, max_batch=4)
+        _same(results, want)
+
+
+# --------------------------------------------------------------------------
 # K6 / K7: block bit packing and Stream VByte decode
 # --------------------------------------------------------------------------
 

@@ -166,12 +166,25 @@ def test_serve_codec_breadth_hits_equal_fastpfor(codec, capsys):
     assert f"index codec {codec} on cpu" in out and "bytes/int" in out
 
 
-def test_serve_runs_on_cpu_and_refuses_later_slices(capsys):
-    rep = t_serve.main(["--queries", "4", "--device", "cpu", "--cache",
-                        "--shared-vocab"])
+def test_serve_runs_on_cpu_and_refuses_later_slices(capsys, tmp_path):
+    """The sequential serve on the CPU, then the flags of the live and
+    mutable slice, once refused, served the same way: their hits equal
+    the sequential serve's where the corpus is the same (--qps), and the
+    mutable runs end on their differential (and recovery) lines; an
+    injected WAL crash is recovered from.  Archs not yet ported are still
+    refused."""
+    base = ["--queries", "4", "--device", "cpu", "--cache", "--shared-vocab"]
+    rep = t_serve.main(base)
     assert len(rep["results"]) == 4
     assert "paper-index: 4 queries" in capsys.readouterr().out
-    for flags in (["--mutate", "10"], ["--qps", "5"], ["--wal", "d"],
-                  ["--chaos", "crash@wal.append.add:1"]):
-        with pytest.raises(NotImplementedError):
-            t_serve.main(["--device", "cpu", *flags])
+    assert t_serve.main(base + ["--qps", "50"])["hits"] == rep["hits"]
+    for flags in (["--mutate", "10"], ["--wal", str(tmp_path / "a")],
+                  ["--mutate", "64", "--wal", str(tmp_path / "b"),
+                   "--chaos", "crash@wal.append.add:3"]):
+        t_serve.main(base + flags)
+        out = capsys.readouterr().out
+        assert "byte-identical to rebuild-from-scratch" in out
+        assert ("--wal" not in flags) or "[serve] recovery check:" in out
+        assert ("--chaos" not in flags) or "recovering from" in out
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        t_serve.main(["--arch", "sasrec", "--device", "cpu"])

@@ -1,7 +1,9 @@
 """The port's ``coerce_index_flags`` against the reference's, case for case
 with tests/test_serve_args.py: the same namespace through both functions
 gives the same effective flags and warnings naming the same flags, and
-the flags of later slices are still refused after coercion."""
+every case, the live (``--qps``), mutable (``--mutate``), durable
+(``--wal``) and chaos (``--chaos``) ones included, is accepted after
+coercion and serves on the CPU."""
 
 import argparse
 import re
@@ -81,16 +83,28 @@ def test_coerce_matches_reference(case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_later_slices_still_refused_after_coercion(case):
-    args = _ns(**CASES[case])
+def test_later_slices_still_refused_after_coercion(case, tmp_path, capsys):
+    """Once refused as "not yet ported", every case's flags now pass
+    ``check_ported`` after coercion and serve four queries on the CPU
+    (a 4096-document corpus), down the branch the reference's
+    ``serve_index`` takes: live, mutable, sharded, pipelined, batched or
+    sequential, each with its own checks."""
+    kw = dict(CASES[case])
+    if kw.get("wal"):
+        kw["wal"] = str(tmp_path / "wal")
+    args = _ns(**kw, queries=4, device="cpu", codec="fastpfor",
+               corpus_seed=5)
     t_serve.coerce_index_flags(args)
-    later = [f for f in ("mutate", "qps", "wal", "chaos")
-             if getattr(args, f)]
-    if later:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_serve.check_ported(args)
-    else:
-        t_serve.check_ported(args)
+    t_serve.check_ported(args)
+    rep = t_serve.serve_index(args, n_docs=1 << 12)
+    assert len(rep["results"]) == 4
+    out = capsys.readouterr().out
+    if args.qps:
+        assert "answered queries byte-identical to direct execution" in out
+    elif args.mutate:
+        assert "byte-identical to rebuild-from-scratch" in out
+    if args.wal:
+        assert "[serve] recovery check:" in out
 
 
 @pytest.mark.parametrize("flags", [["--pipeline", "2"], ["--shards", "2"],
@@ -102,10 +116,82 @@ def test_cli_parses_the_ported_flags(flags):
     assert args.resident and (args.batch > 1 or flags == ["--resident"])
 
 
-@pytest.mark.parametrize("flag", [["--qps", "100"], ["--mutate", "10"],
-                                  ["--wal", "w"], ["--chaos", "crash@x"]])
-def test_cli_refuses_later_slices(flag):
+@pytest.mark.parametrize("flag", [
+    ["--qps", "400"], ["--mutate", "10"], ["--wal", "WAL"],
+    ["--chaos", "transient@launch:2", "--qps", "400"]])
+def test_cli_refuses_later_slices(flag, tmp_path, capsys):
+    """The four flags once refused now parse and run through ``main`` on
+    the CPU, each printing the reference's differential line (and, under
+    --wal, its recovery line); a spec naming no fault point is refused."""
+    flag = [str(tmp_path / "wal") if f == "WAL" else f for f in flag]
     args = t_serve.build_parser().parse_args(flag)
     t_serve.coerce_index_flags(args)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_serve.check_ported(args)
+    t_serve.check_ported(args)
+    rep = t_serve.main(["--queries", "4", "--device", "cpu", *flag])
+    assert len(rep["results"]) == 4
+    out = capsys.readouterr().out
+    assert "[serve] differential check:" in out
+    if "--wal" in flag:
+        assert "[serve] recovery check:" in out
+    if "--chaos" in flag:
+        assert "[serve] chaos: {'transient@launch':" in out
+        with pytest.raises(ValueError, match="unknown fault point"):
+            t_serve.main(["--queries", "4", "--device", "cpu", "--qps",
+                          "400", "--chaos", "crash@x"])
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_seed_seeds_chaos_and_arrivals_as_the_reference(seed, monkeypatch,
+                                                         capsys):
+    """``--seed`` means what the reference's does: the --chaos schedule
+    and the --qps arrival gaps (the corpus takes ``--corpus-seed``).  The
+    port's injector from ``--seed N`` fires at the same calls as the
+    reference's, and its live serve draws the reference's gaps."""
+    from repro.launch import serve as r_serve, server as r_server
+    from repro_torch.launch import server as t_server
+    spec = "transient@launch:0.3,error@collect:0.2"
+    args = t_serve.build_parser().parse_args(
+        ["--chaos", spec, "--seed", str(seed)])
+    assert args.corpus_seed == 5
+    ours = t_serve._injector(args)
+    ref = r_serve._injector(argparse.Namespace(chaos=spec, seed=seed))
+    for inj in (ours, ref):
+        for i in range(200):
+            try:
+                inj.fire("launch" if i % 2 else "collect")
+            except RuntimeError:
+                pass
+    assert ours.fired == ref.fired and ours.counts() == ref.counts()
+    drawn, real = [], t_server.arrival_gaps
+
+    def gaps(*a, **kw):
+        drawn.append(real(*a, **kw))
+        return drawn[-1]
+
+    monkeypatch.setattr(t_server, "arrival_gaps", gaps)
+    t_serve.main(["--queries", "4", "--device", "cpu", "--qps", "400",
+                  "--seed", str(seed)])
+    assert "[serve] differential check:" in capsys.readouterr().out
+    assert drawn == [r_server.arrival_gaps(4, 400.0, "poisson", seed=seed)]
+
+
+@pytest.mark.parametrize("fails", [1, 3])
+def test_mutate_refuses_a_merge_that_failed(fails, monkeypatch):
+    """``merge_async`` retries a failed merge and records it; the mutable
+    serve raises where a merge attempt failed without an injected
+    ``merge.*`` fault, whether a retry then succeeded (1) or all three
+    attempts failed (3)."""
+    from repro_torch.index import segments
+    merge, calls = segments.MutableIndex.merge, []
+
+    def flaky(self, **kw):
+        calls.append(1)
+        if len(calls) <= fails:
+            raise RuntimeError("a merge that failed")
+        return merge(self, **kw)
+
+    monkeypatch.setattr(segments.MutableIndex, "merge", flaky)
+    with pytest.raises(RuntimeError, match="background merge failed"):
+        t_serve.main(["--queries", "4", "--device", "cpu", "--mutate", "20",
+                      "--batch", "4"])
+    assert len(calls) == min(fails + 1, 3)
