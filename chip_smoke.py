@@ -12,8 +12,9 @@ Phases, each fatal on failure, each timed:
      --mutate 120 --delete-frac 0.2 --batch 16`` and ``serve --qps 500
      --wal DIR --mutate 64 --chaos crash@wal.append.add:40 --batch 16``,
      each printing its differential line (the last also its chaos and
-     recovery lines); ``serve --arch gemma-7b --tokens 4`` (the
-     smoke-reduced LM);
+     recovery lines); ``serve --arch <id> --tokens 4`` for gemma-7b,
+     granite-moe-1b-a400m and kimi-k2-1t-a32b and ``serve --arch <id>``
+     for din, sasrec, bert4rec and mind (the smoke-reduced models);
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32, K = 1, 3, WARPS ± 1 blocks and
      clamped word reads × six modes × rows 32/8, K2a/K2b over M 128…2**16
@@ -93,7 +94,8 @@ Phases, each fatal on failure, each timed:
      d_model 3072, 16 heads of 256, d_ff 24576, vocab 256000; 8,537,677,824
      float32 parameters from a seeded generator on the card, bf16 compute)
      serves 4 requests of 1024 prompt tokens and 32 new tokens through
-     ``serve.steps.greedy_generate``: finite logits, the first decode step
+     ``serve.steps.greedy_generate``, after one warm generation of 2
+     tokens (``serve_lm_checked``, as phase 6): finite logits, the first decode step
      against a prefill over the prompt and its token, tokens/s and peak
      memory, a profile of one prefill and one decode step; the same
      weights cut to 2 layers in float32 on the card and on the CPU (logits
@@ -108,7 +110,30 @@ Phases, each fatal on failure, each timed:
      back and in a CUDA graph, also under its FlashAttention-2 backend
      alone), its host time a call at one 64-token tile, and its bound
      (bytes over 3.35 TB/s, or FLOPs over 989 TFLOP/s for bf16 operands
-     and 67 TFLOP/s for float32).
+     and 67 TFLOP/s for float32);
+  6. the MoE LMs at full width, after gemma-7b is freed: granite-moe-1b-
+     a400m as registered (24 layers, 32 experts, top-8, 1,334,640,640
+     float32 parameters) serves the same 4 x (1024 + 32) requests: finite
+     logits, tokens in range, prefill tok/s, decode ms/step, peak memory;
+     two prefills bit-equal, the slots dropped in a prefill and a decode
+     step, a profile of each (idle share, launches); the first decode step
+     against a prefill over the prompt and its token with capacity_factor
+     E/top_k (nothing dropped) within LM_DECODE_TOL; the 2-layer float32
+     cut on the card and the CPU (logits within 1e-3, tokens equal) and
+     each MoE layer's experts routed on both from the card's layer input
+     (equal sets except at a CPU margin under 1e-5, counted); then
+     kimi-k2-1t-a32b at its registered widths cut to 2 of 61 layers (1
+     where 2 does not fit; the cut run is printed): the same requests,
+     bit-equal repeat prefills, dropped slots (C = 107 in a prefill, 1 in
+     a decode step), profiles;
+  7. in a child process with expandable segments (``run_recsys_phase``),
+     din, sasrec, bert4rec and mind at their registered widths, params
+     from a seed: serve_p99 (512 rows) and serve_bulk (262144; bert4rec
+     65536) scored, retrieval_cand (2**20 candidates; din 2**18) scored
+     and cut to the top 100, each timed (ms a batch, items/s, peak memory)
+     and held against the port's CPU path on the same params and batch,
+     run in row chunks: scores within 1e-4, top-100 values within 1e-4
+     and indices equal outside tie groups.
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
@@ -121,6 +146,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -217,6 +243,29 @@ GQA_SHAPE = (4, 1024, 1024, 40, 10, 128)
 # random walk of about sqrt(56) * 2**-9 ≈ 0.015 per path; the logits' RMS
 # difference must stay within 0.05 of their RMS
 LM_DECODE_TOL = 0.05
+# phase 6: the MoE LMs at full width (the same 4 x (1024 + 32) requests)
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_PARAMS = 1_334_640_640
+KIMI_ARCH = "kimi-k2-1t-a32b"
+# kimi's layers are all one MoE layer, so a layer is a whole period: 2 of
+# 61 (72.8e9 bytes of bf16 weights), or 1 where the peak does not fit
+KIMI_CUTS = (2, 1)
+# the 2-layer float32 cut routes on the card and the CPU from the same
+# layer input; float32 sums in another order move a probability by ~1e-7,
+# so experts may differ only where the k-th and (k+1)-th are this close
+NEAR_TIE = 1e-5
+# phase 7: the recsys archs at their registered widths, at the serve shapes
+# of configs/recsys_shapes.py; the cuts keep one materialised tensor under
+# the card's 80 GB: bert4rec's (B, 2, 200, 200) float32 attention scores
+# are 84e9 bytes at 262144 rows, din's per-candidate target attention
+# builds (C, 100, 144) float32, 60e9 bytes at 2**20 candidates
+RECSYS_ARCHS = ("din", "sasrec", "bert4rec", "mind")
+RECSYS_CUTS = {("serve_bulk", "bert4rec"): 1 << 16,
+               ("retrieval_cand", "din"): 1 << 18}
+# card against the CPU path in float32 (rtol and atol): the same products
+# summed in another order
+RECSYS_TOL = 1e-4
+CPU_CHUNK = 1 << 14            # rows (or candidates) a CPU call
 # K8 at phase 2's shapes (tests/test_torch_cuda.py's FLASH_CASES): B, Sq,
 # Sk, H, Hkv, D, causal, kv_len, bq, bk, and the route the bf16 call takes
 # by kernels/flash_attention.py's route table (float32 calls take simt)
@@ -1914,6 +1963,64 @@ def generate(steps, params, cfg, prompt, max_new: int) -> tuple:
     return out, timer
 
 
+def serve_lm_checked(steps, params, cfg, prompt, what: str) -> tuple:
+    """``greedy_generate`` of LM_NEW tokens under a StepTimer, after one
+    warm generation of 2 tokens at the same shapes, with finite logits and
+    tokens in range; logs prefill tok/s, decode ms/step and peak memory.
+    Returns (tokens, timer, numbers)."""
+    generate(steps, params, cfg, prompt, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, timer = generate(steps, params, cfg, prompt, LM_NEW)
+    wall = time.perf_counter() - t0
+    logits = torch.stack(timer.logits, 1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    B, S = prompt.shape
+    if tuple(out.shape) != (B, LM_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{what}: bad tokens {tuple(out.shape)}")
+    t_pre, t_dec = timer.seconds["prefill"], timer.seconds["decode_step"]
+    rec = {"prefill_tok_s": B * S / t_pre,
+           "decode_ms_step": t_dec / (LM_NEW - 1) * 1e3,
+           "decode_tok_s": B * (LM_NEW - 1) / t_dec,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"{what} served {B} requests x ({S} prompt + {LM_NEW} new) tokens in "
+        f"{wall:.3f} s: prefill {t_pre:.4f} s ({rec['prefill_tok_s']:.1f} "
+        f"tok/s), {LM_NEW - 1} decode steps {t_dec:.4f} s "
+        f"({rec['decode_tok_s']:.1f} tok/s, {rec['decode_ms_step']:.2f} "
+        f"ms/step); peak device memory {rec['peak_bytes']} bytes; logits "
+        f"finite, |max| {float(logits.abs().max())}; tokens of request 0 "
+        f"{out[0, :8].tolist()}")
+    return out, timer, rec
+
+
+def two_layer_cut(steps, params, cfg, prompt, record=contextlib.nullcontext):
+    """The same weights cut to 2 layers in float32, on the card and the
+    CPU, over the first 64 prompt tokens and 4 new: logits within 1e-3
+    (|a - b| <= 1e-3 (1 + |b|)) at every step, tokens equal.  ``record``
+    wraps the card's run.  Returns (per-step max |a - b| / (1 + |b|), the
+    card's tokens, what ``record`` yielded)."""
+    from repro_torch.models import transformer as tfm
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = tfm.LM(cfg2, device="meta")
+    small.embed, small.final_norm = params.embed, params.final_norm
+    small.layers = torch.nn.ModuleList(list(params.layers[:2]))
+    on_cpu = tfm.LM(cfg2, device="cpu")
+    on_cpu.load_state_dict(small.state_dict())
+    p64 = prompt[:, :64]
+    with record() as seen:
+        got, t_card = generate(steps, small, cfg2, p64, 4)
+    want, t_cpu = generate(steps, on_cpu, cfg2, p64.cpu(), 4)
+    errs = [float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+            for a, b in zip(t_card.logits, t_cpu.logits)]
+    if not (max(errs) <= 1e-3 and torch.equal(got.cpu(), want)):
+        raise AssertionError(f"{cfg.name} 2-layer float32 card vs CPU: "
+                             f"per-step |a - b| / (1 + |b|) {errs}, tokens "
+                             f"{got.tolist()} vs {want.tolist()}")
+    return errs, got, seen
+
+
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
@@ -1946,24 +2053,7 @@ def serve_full_width(dev) -> dict:
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
                            dtype=torch.int32, device=dev,
                            generator=torch.Generator(dev).manual_seed(1))
-    t0 = time.perf_counter()
-    out, timer = generate(steps, params, cfg, prompt, LM_NEW)
-    wall = time.perf_counter() - t0
-    logits = torch.stack(timer.logits, 1)                  # (B, steps, V)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{LM_ARCH}: non-finite logits")
-    if tuple(out.shape) != (LM_BATCH, LM_NEW) or not bool(
-            ((out >= 0) & (out < cfg.vocab)).all()):
-        raise AssertionError(f"{LM_ARCH}: bad tokens {tuple(out.shape)}")
-    t_pre, t_dec = timer.seconds["prefill"], timer.seconds["decode_step"]
-    log(f"{LM_ARCH} served {LM_BATCH} requests x ({LM_PROMPT} prompt + "
-        f"{LM_NEW} new) tokens in {wall:.3f} s: prefill {t_pre:.4f} s "
-        f"({LM_BATCH * LM_PROMPT / t_pre:.1f} tok/s), {LM_NEW - 1} decode "
-        f"steps {t_dec:.4f} s ({LM_BATCH * (LM_NEW - 1) / t_dec:.1f} tok/s, "
-        f"{t_dec / (LM_NEW - 1) * 1e3:.2f} ms/step); peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes; logits finite, |max| "
-        f"{float(logits.abs().max())}; tokens of request 0 "
-        f"{out[0, :8].tolist()}")
+    out, timer, _ = serve_lm_checked(steps, params, cfg, prompt, LM_ARCH)
 
     # the first decode step against a prefill over the prompt and its token
     again, _ = tfm.prefill(params, torch.cat([prompt, out[:, :1]], 1), cfg)
@@ -2035,32 +2125,412 @@ def serve_full_width(dev) -> dict:
     profile_report(f"{LM_ARCH} decode step",
                    lambda: tfm.decode_step(params, cache, token, pos, cfg),
                    f"{LM_BATCH} tokens at position {pos}")
-    del cache, timer, logits, x, xd
+    del cache, timer, x, xd
 
-    # the same weights cut to 2 layers in float32, on the card and the CPU
-    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
-    small = tfm.LM(cfg2, device="meta")
-    small.embed, small.final_norm = params.embed, params.final_norm
-    small.layers = torch.nn.ModuleList(list(params.layers[:2]))
-    on_cpu = tfm.LM(cfg2, device="cpu")
-    on_cpu.load_state_dict(small.state_dict())
-    p64 = prompt[:, :64]
     t0 = time.perf_counter()
-    got, t_card = generate(steps, small, cfg2, p64, 4)
-    want, t_cpu = generate(steps, on_cpu, cfg2, p64.cpu(), 4)
-    errs = []
-    for a, b in zip(t_card.logits, t_cpu.logits):
-        a = a.cpu()
-        errs.append(float(((a - b).abs() / (1 + b.abs())).max()))
-    if not (max(errs) <= 1e-3 and torch.equal(got.cpu(), want)):
-        raise AssertionError(f"2-layer float32 card vs CPU: per-step "
-                             f"|a - b| / (1 + |b|) {errs}, tokens "
-                             f"{got.tolist()} vs {want.tolist()}")
+    errs, got, _ = two_layer_cut(steps, params, cfg, prompt)
     log(f"{LM_ARCH} cut to 2 layers, float32, 64-token prompt, 4 new tokens: "
         f"card and CPU logits within 1e-3 (max |a - b| / (1 + |b|) per step "
         f"{errs}), tokens equal {got[0].tolist()} ({time.perf_counter() - t0:.1f} s)")
-    del small, on_cpu, params
+    del params
     return {"launches": launches, "timed": timed}
+
+
+# --------------------------------------------------------------------------
+# phase 6: the MoE LMs at full width
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_inputs():
+    """Record each ``moe.moe_ffn`` call's (layer weights, layer input) while
+    the block runs (the transformer looks the function up at each call)."""
+    from repro_torch.models import moe
+    seen, inner = [], moe.moe_ffn
+
+    def record(p, h, **kw):
+        seen.append((p, h))
+        return inner(p, h, **kw)
+    moe.moe_ffn = record
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = inner
+
+
+def dropped_slots(seen, cfg) -> tuple[int, int]:
+    """(slots past capacity over the recorded MoE calls, C of the last)."""
+    from repro_torch.models import moe
+    total = C = 0
+    for p, h in seen:
+        hf = h.reshape(-1, h.shape[-1])
+        ids = moe._route(p.router, hf, cfg.top_k, cfg.n_experts)[1]
+        gsz = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+        C = moe.capacity(hf.shape[0], cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor)
+        total += int((gsz - C).clamp_min(0).sum())
+    return total, C
+
+
+def expert_ids_agree(seen, cfg) -> tuple[int, int]:
+    """Each recorded layer input routed on the card and, copied, on the
+    CPU: the sets of k experts must be equal for every token, except where
+    the CPU's k-th and (k+1)-th probabilities are within NEAR_TIE.  Returns
+    (tokens whose sets differ at such a near tie, tokens at a near tie)."""
+    from repro_torch.models import moe
+    k, E = cfg.top_k, cfg.n_experts
+    differ_near = near = 0
+    for p, h in seen:
+        hf = h.reshape(-1, h.shape[-1])
+        card = moe._route(p.router, hf, k, E)[1].sort(1).values.cpu()
+        _, ids, probs = moe._route(p.router.cpu(), hf.cpu(), k, E)
+        top = probs.sort(-1, descending=True).values
+        tie = (top[:, k - 1] - top[:, k]) < NEAR_TIE
+        differ = (card != ids.sort(1).values).any(1)
+        if bool((differ & ~tie).any()):
+            raise AssertionError(f"{int((differ & ~tie).sum())} tokens "
+                                 f"routed to other experts on the card than "
+                                 f"on the CPU at no near tie")
+        differ_near += int(differ.sum())
+        near += int(tie.sum())
+    return differ_near, near
+
+
+def moe_repeat_and_drops(params, cfg, prompt, timer, what: str) -> None:
+    """Two prefills give bit-equal logits; the slots dropped in a prefill
+    and in the last decode step (run again on its own cache); a profile
+    of each (idle share, launches)."""
+    from repro_torch.models import transformer as tfm
+    with moe_inputs() as seen:
+        first, _ = tfm.prefill(params, prompt, cfg)
+    drop_pre, c_pre = dropped_slots(seen, cfg)
+    del seen
+    again, _ = tfm.prefill(params, prompt, cfg)
+    if not torch.equal(first, again):
+        raise AssertionError(f"{what}: two prefills differ, max abs "
+                             f"{max_float_err(first, again)}")
+    del first, again
+    cache, token, pos = timer.last
+    with moe_inputs() as seen:
+        tfm.decode_step(params, cache, token, pos, cfg)
+    drop_dec, c_dec = dropped_slots(seen, cfg)
+    del seen
+    slots = prompt.numel() * cfg.top_k * cfg.n_layers
+    log(f"{what}: two prefills give bit-equal logits; dropped slots: "
+        f"{drop_pre} of {slots} in a prefill (C = {c_pre}), {drop_dec} of "
+        f"{token.numel() * cfg.top_k * cfg.n_layers} in a decode step "
+        f"(C = {c_dec})")
+    B, S = prompt.shape
+    profile_report(f"{what} prefill", lambda: tfm.prefill(params, prompt,
+                                                          cfg),
+                   f"{B} x {S} tokens")
+    profile_report(f"{what} decode step",
+                   lambda: tfm.decode_step(params, cache, token, pos, cfg),
+                   f"{B} tokens at position {pos}")
+
+
+def serve_moe(dev) -> dict:
+    """Phase 6: granite-moe-1b-a400m as registered (serve, checks a–c),
+    then kimi-k2-1t-a32b at its full width, cut in depth."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import steps
+    out = {}
+    cfg = get_config(MOE_ARCH).config
+    if cfg.param_count() != MOE_PARAMS:
+        raise AssertionError(f"{MOE_ARCH} is not the registered full width")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    if n != MOE_PARAMS + cfg.d_model:
+        raise AssertionError(f"{n} parameters, want {MOE_PARAMS} + "
+                             f"{cfg.d_model}")
+    log(f"{MOE_ARCH}: {MOE_PARAMS} {cfg.param_dtype} parameters (and the "
+        f"final norm's {cfg.d_model}), {cfg.n_layers} layers of "
+        f"{cfg.n_experts} experts, top-{cfg.top_k}, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    tokens, timer, out[MOE_ARCH] = serve_lm_checked(steps, params, cfg,
+                                                    prompt, MOE_ARCH)
+    # (c) bit-equal repeats, and what the registered config drops
+    moe_repeat_and_drops(params, cfg, prompt, timer, MOE_ARCH)
+    del timer
+
+    # (b) the first decode step against a prefill over the prompt and its
+    # token, where no slot is dropped (C = N): a B-token decode and a
+    # B·(S+1)-token prefill drop different slots by design otherwise
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    first, nd_timer = generate(steps, params, nd, prompt, 2)
+    full, _ = tfm.prefill(params, torch.cat([prompt, first[:, :1]], 1), nd)
+    dec0 = nd_timer.logits[1]
+    err = rel_rms(dec0, full)
+    log(f"{MOE_ARCH} with capacity_factor {nd.capacity_factor:g} (no slot "
+        f"dropped): first decode step against prefill over prompt + token: "
+        f"RMS difference {err:.5f} of the logits' RMS (tolerance "
+        f"{LM_DECODE_TOL}), max abs {max_float_err(dec0, full)}, argmax "
+        f"equal in {int((dec0.argmax(-1) == full.argmax(-1)).sum())}/"
+        f"{LM_BATCH} rows")
+    if not err <= LM_DECODE_TOL:
+        raise AssertionError(f"{MOE_ARCH}: decode step differs from prefill "
+                             f"by {err}")
+    del first, nd_timer, full, dec0
+
+    # (a) the 2-layer float32 cut on the card and the CPU, and each MoE
+    # layer's experts for the card's layer input on both
+    t0 = time.perf_counter()
+    errs, got, seen = two_layer_cut(steps, params, cfg, prompt, moe_inputs)
+    differ, near = expert_ids_agree(seen, dataclasses.replace(
+        cfg, compute_dtype="float32"))
+    log(f"{MOE_ARCH} cut to 2 layers, float32, 64-token prompt, 4 new "
+        f"tokens: card and CPU logits within 1e-3 (max |a - b| / (1 + |b|) "
+        f"per step {errs}), tokens equal {got[0].tolist()}; experts of "
+        f"{len(seen)} MoE calls routed on the card and the CPU from the "
+        f"card's layer inputs: equal sets but for {differ} tokens at a near "
+        f"tie ({near} tokens with a CPU margin under {NEAR_TIE}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del seen, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kimi-k2 at its full width: every layer is the same MoE layer, so one
+    # layer is a whole period; the cut is the deepest that fits
+    for layers in KIMI_CUTS:
+        try:
+            out[KIMI_ARCH] = serve_kimi(dev, layers)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{KIMI_ARCH} cut to {layers} layers does not fit the card: "
+                f"{str(e).splitlines()[0]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"{KIMI_ARCH} fits the card at no cut "
+                             f"{KIMI_CUTS}")
+    return out
+
+
+def serve_kimi(dev, layers: int) -> dict:
+    """kimi-k2-1t-a32b at the registered widths cut to ``layers`` of its 61
+    layers: serve, bit-equal repeat prefills, dropped slots, profiles."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import steps
+    full = get_config(KIMI_ARCH).config
+    cfg = dataclasses.replace(full, n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    if n != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"{n} parameters, want {cfg.param_count()} + "
+                             f"{cfg.d_model}")
+    log(f"{KIMI_ARCH} cut to {layers} of {full.n_layers} layers (the cut "
+        f"run): {cfg.param_count()} {cfg.param_dtype} parameters "
+        f"({sum(p.numel() * p.element_size() for p in params.parameters())}"
+        f" bytes; router float32), d_model {cfg.d_model}, {cfg.n_experts} "
+        f"experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, vocab {cfg.vocab}, "
+        f"made on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated()} bytes allocated")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    what = f"{KIMI_ARCH} ({layers} layers)"
+    _, timer, rec = serve_lm_checked(steps, params, cfg, prompt, what)
+    moe_repeat_and_drops(params, cfg, prompt, timer, what)
+    rec["layers"] = layers
+    return rec
+
+
+# --------------------------------------------------------------------------
+# phase 7: recsys scoring and retrieval at the registered widths
+# --------------------------------------------------------------------------
+
+def tree_to(tree, device):
+    """A recsys params tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def expect_allclose(what: str, got: torch.Tensor, want: torch.Tensor,
+                    tol: float = RECSYS_TOL) -> float:
+    """|got - want| <= tol + tol·|want| elementwise; returns max |got - want|."""
+    got = got.cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    bad = (got - want).abs() > tol + tol * want.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: {int(bad.sum())} of {got.numel()} "
+                             f"outside {tol} (max abs "
+                             f"{max_float_err(got, want)})")
+    return max_float_err(got, want)
+
+
+def top_k_agree(what, values, indices, want_values, want_indices,
+                tol: float = RECSYS_TOL) -> int:
+    """Top-k values within ``tol``; indices equal outside tie groups (runs
+    of CPU values closer than 2·tol), a group's index set equal where it
+    ends before rank k.  Returns the ranks compared one to one."""
+    expect_allclose(f"{what} top-k values", values, want_values, tol)
+    v, i, wi = want_values.numpy(), indices.cpu().numpy(), want_indices.numpy()
+    k = len(v)
+    starts = np.flatnonzero(np.r_[True, np.abs(np.diff(v)) > 2 * tol])
+    single = 0
+    for lo, hi in zip(starts, np.r_[starts[1:], k]):
+        if hi == k and hi - lo > 1:
+            continue
+        if sorted(i[lo:hi]) != sorted(wi[lo:hi]):
+            raise AssertionError(f"{what}: top-k indices differ at ranks "
+                                 f"{lo}..{hi - 1}")
+        single += hi - lo == 1
+    return single
+
+
+def _on_cpu_in_chunks(fn, batch: dict, n: int, keys) -> torch.Tensor:
+    """``fn`` on the CPU over row chunks of ``batch``'s ``keys`` (the rest
+    whole): each row's score depends on its own row alone."""
+    out = []
+    for lo in range(0, n, CPU_CHUNK):
+        part = {k: (v[lo:lo + CPU_CHUNK] if k in keys else v)
+                for k, v in batch.items()}
+        with torch.no_grad():
+            out.append(fn(part))
+    return torch.cat(out)
+
+
+def timed_step(fn, reps: int) -> float:
+    """Seconds a call: ``fn()`` once to warm, then ``reps`` calls, host
+    clock around work that ends in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+# Phase 7 runs in a process of its own, with expandable segments: its
+# bert4rec bulk batch frees and asks again for 21e9-byte score tensors 12e9
+# bytes short of the card's memory.  In the process of phases 1-6, with
+# the default segments, it ran out of memory with 17 GiB cached in pieces
+# of such blocks that smaller tensors had split; with blocks kept whole
+# (max_split_size_mb) it re-allocated them every call, at twice the time.
+RECSYS_ALLOC_CONF = "expandable_segments:True"
+
+
+def recsys_child() -> None:
+    """Phase 7's process: ``serve_recsys_full`` on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    log(f"phase 7 in its own process (PYTORCH_CUDA_ALLOC_CONF="
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
+    serve_recsys_full(torch.device("cuda"))
+    log(f"phase 7's process done in {time.perf_counter() - t0:.1f} s")
+
+
+def run_recsys_phase() -> None:
+    """Phase 7 in a child process with RECSYS_ALLOC_CONF, after this
+    process has given back its cached memory; fails if the child does."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=RECSYS_ALLOC_CONF)
+    subprocess.run([sys.executable, "-c",
+                    "import chip_smoke; chip_smoke.recsys_child()"],
+                   cwd=ROOT, env=env, check=True, timeout=900)
+
+
+def serve_recsys_full(dev) -> dict:
+    """Phase 7: din, sasrec, bert4rec and mind at the registered widths,
+    params from a seed: serve_p99 and serve_bulk scored, retrieval_cand
+    scored and cut to the top 100 on the card, each held against the
+    port's CPU path on the same params and batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import recsys_data as rd
+    from repro_torch.models import recsys
+    from repro_torch.serve import steps
+    makers = {"din": rd.din_batch, "sasrec": rd.seq_batch,
+              "bert4rec": rd.bert4rec_batch, "mind": rd.mind_batch}
+    rec = {}
+    for seed, arch in enumerate(RECSYS_ARCHS):
+        spec = get_config(arch)
+        cfg = spec.config
+        t0 = time.perf_counter()
+        params = recsys.INIT[arch](torch.Generator(dev).manual_seed(seed),
+                                   cfg, dev)
+        on_cpu = tree_to(params, "cpu")
+        log(f"{arch}: {tree_numel(params)} float32 parameters at the "
+            f"registered widths from seed {seed} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(100 + seed)
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            want = spec.shapes[shape]
+            retrieval = want["kind"] == "retrieval"
+            full_n = want["n_candidates"] if retrieval else want["batch"]
+            n = RECSYS_CUTS.get((shape, arch), full_n)
+            b_np = (rd.retrieval_batch(rng, cfg, n) if retrieval
+                    else makers[arch](rng, cfg, n))
+            b = {k: torch.from_numpy(v).to(dev) for k, v in b_np.items()}
+            b_cpu = {k: torch.from_numpy(v) for k, v in b_np.items()}
+            torch.cuda.reset_peak_memory_stats()
+            if retrieval:
+                step = steps.make_recsys_retrieval_step(cfg, want["top_k"])
+                sec = timed_step(lambda: step(params, b), 3)
+                vals, idx = step(params, b)
+                with torch.no_grad():
+                    scores = recsys.RETRIEVAL[arch](params, b, cfg)
+                cpu = _on_cpu_in_chunks(
+                    lambda part: recsys.RETRIEVAL[arch](on_cpu, part, cfg),
+                    b_cpu, n, ("cand_items", "cand_cates"))
+                err = expect_allclose(f"{arch} {shape} scores", scores, cpu)
+                cv, ci = torch.topk(cpu, want["top_k"])
+                single = top_k_agree(f"{arch} {shape}", vals, idx, cv, ci)
+                note = (f"top-{want['top_k']} values within {RECSYS_TOL}, "
+                        f"indices equal ({single} ranks one to one, the "
+                        f"rest in tie groups of repeated ids)")
+                del scores, vals, idx
+            else:
+                step = steps.make_recsys_score_step(cfg)
+                sec = timed_step(lambda: step(params, b), 3)
+                got = step(params, b)
+                cpu = _on_cpu_in_chunks(
+                    lambda part: recsys.SCORE[arch](on_cpu, part, cfg),
+                    b_cpu, n, b_cpu.keys())
+                err = expect_allclose(f"{arch} {shape} scores", got, cpu)
+                note = f"mean score {float(got.mean()):.4f}"
+                del got
+            peak = torch.cuda.max_memory_allocated()
+            cut = "" if n == full_n else f" (cut from {full_n})"
+            rec[f"{arch}/{shape}"] = {"n": n, "ms": sec * 1e3,
+                                      "items_s": n / sec, "peak_bytes": peak}
+            items = "candidates" if retrieval else "rows"
+            log(f"{arch} {shape}: {n}{cut} {items} in {sec * 1e3:.3f} ms a "
+                f"batch ({n / sec:.1f} items/s), "
+                f"peak device memory {peak} bytes; card against the CPU path "
+                f"within {RECSYS_TOL} (max abs {err}); {note}")
+            del b, b_cpu, cpu
+            torch.cuda.empty_cache()
+        del params, on_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_done(k: int, t0: float) -> float:
@@ -2218,10 +2688,17 @@ def main(argv=None) -> int:
             raise AssertionError(f"serve {' '.join(flags)} gave other hits "
                                  f"than the sequential serve")
     serve_live_cli()
-    lm = serve.main(["--arch", LM_ARCH, "--tokens", "4"])
-    if tuple(lm["tokens"].shape) != (4, 4):
-        raise AssertionError(f"serve --arch {LM_ARCH} gave tokens of shape "
-                             f"{tuple(lm['tokens'].shape)}")
+    for arch in (LM_ARCH, MOE_ARCH, KIMI_ARCH):
+        lm = serve.main(["--arch", arch, "--tokens", "4"])
+        if tuple(lm["tokens"].shape) != (4, 4):
+            raise AssertionError(f"serve --arch {arch} gave tokens of shape "
+                                 f"{tuple(lm['tokens'].shape)}")
+    for arch in RECSYS_ARCHS:
+        rs = serve.main(["--arch", arch])
+        if tuple(rs["scores"].shape) != (4,) or not bool(
+                torch.isfinite(rs["scores"]).all()):
+            raise AssertionError(f"serve --arch {arch} gave scores "
+                                 f"{rs['scores']}")
     t_phase = phase_done(1, t_phase)
 
     t0 = time.perf_counter()
@@ -2300,7 +2777,17 @@ def main(argv=None) -> int:
                     "source": source, "replaces": replaces,
                     "launches": lm_path["launches"], **k8.pop("prefill"),
                     "other_shapes": k8})
-    phase_done(5, t_phase)
+    t_phase = phase_done(5, t_phase)
+
+    # free gemma-7b before the MoE LMs
+    del lm_path, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"after phase 5: {torch.cuda.memory_allocated()} bytes allocated")
+    serve_moe(dev)
+    t_phase = phase_done(6, t_phase)
+    run_recsys_phase()
+    phase_done(7, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 (``--arch <id>``) with its input-shape set.
 
 Port of ``src/repro/configs/base.py``.  The registry loads the archs the
-port has: the dense LMs (gemma-7b, phi3-medium-14b, internlm2-1.8b) and the
-paper's index.  An arch that the reference registers and the port lacks
-(the MoE LMs, the recsys models, the GNN) raises ``NotImplementedError``;
-an id that neither package knows raises ``KeyError``.
+port has: the dense LMs (gemma-7b, phi3-medium-14b, internlm2-1.8b), the
+MoE LMs (granite-moe-1b-a400m, kimi-k2-1t-a32b), the recsys models (din,
+sasrec, bert4rec, mind) and the paper's index.  An arch that the reference
+registers and the port lacks (the GNN) raises ``NotImplementedError``; an
+id that neither package knows raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -17,21 +18,15 @@ _REGISTRY: dict[str, "ArchSpec"] = {}
 
 # archs of the reference that later slices of the port bring
 NOT_YET_PORTED = {
-    "granite-moe-1b-a400m": "MoE LM",
-    "kimi-k2-1t-a32b": "MoE LM",
     "graphsage-reddit": "GNN",
-    "din": "recsys",
-    "sasrec": "recsys",
-    "bert4rec": "recsys",
-    "mind": "recsys",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # 'lm' | 'index'
-    config: Any                 # LMConfig / dict
+    family: str                 # 'lm' | 'recsys' | 'index'
+    config: Any                 # LMConfig / RecsysConfig / dict
     shapes: dict[str, dict]     # shape name → shape params
     source: str = ""            # citation tag from the assignment
 
@@ -72,10 +67,11 @@ def _ensure_loaded():
         return
     _loaded = True
     from repro_torch.configs import (  # noqa: F401
-        gemma_7b, phi3_medium_14b, internlm2_1_8b, paper_index)
+        gemma_7b, phi3_medium_14b, internlm2_1_8b, granite_moe_1b, kimi_k2,
+        mind, sasrec, din, bert4rec, paper_index)
 
 
-# Canonical LM shape set (shared by all LM archs)
+# Canonical LM shape set (shared by all 5 LM archs)
 LM_SHAPES = {
     "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
     "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},

@@ -1,7 +1,7 @@
 """Reduced same-family configs for CPU smoke tests.
 
-Port of the LM branch of ``src/repro/configs/reduce.py``; the GNN and
-recsys branches come with those models."""
+Port of the LM and recsys branches of ``src/repro/configs/reduce.py``; the
+GNN branch comes with that model."""
 import dataclasses
 
 
@@ -15,4 +15,8 @@ def reduced(spec):
             top_k=min(c.top_k, 2) if c.is_moe else 0,
             param_dtype="float32", remat="none", full_attn_max_seq=256,
             attn_chunk=64)
+    if spec.family == "recsys":
+        c = spec.config
+        return dataclasses.replace(c, n_items=1024, n_cates=64,
+                                   seq_len=16, n_neg=7)
     return spec.config

@@ -1,12 +1,13 @@
 """Serving launcher for the port: conjunctive-query serving, sequential or
-batched, live or on a mutable, durable index, and greedy generation on the
-dense LMs.
+batched, live or on a mutable, durable index; greedy generation on the
+LMs, dense and MoE; batched scoring on the recsys models.
 
 Port of the paper-index path of ``src/repro/launch/serve.py``
 (``coerce_index_flags``, ``serve_index`` with its sequential, ``--batch``,
 ``--resident``, ``--pipeline``, ``--shards``, ``--qps`` and ``--mutate``
 branches, ``serve_index_live``, ``serve_index_mutable`` and their
-``--wal`` / ``--chaos`` helpers) and of its LM path (``serve_lm``).
+``--wal`` / ``--chaos`` helpers), of its LM path (``serve_lm``) and of its
+recsys path (``serve_recsys``).
 It synthesizes the corpus, builds the HYB+M2 index (B=16, two parts) on the
 device, warms, and serves every query once more under the clock.
 ``--batch N`` (N > 1) serves through the batched engine
@@ -53,12 +54,20 @@ it at 5).
       --mutate 64 --chaos crash@wal.append.add:40 --batch 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --device cpu --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b \\
+      --device cpu --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --device cpu
 
-``--arch <lm id>`` (gemma-7b, phi3-medium-14b, internlm2-1.8b) runs prefill
-and greedy decode on the smoke-reduced model, as the reference's
-``serve_lm`` does: random weights from seed 0, a batch of ``--batch``
-(default 4) 16-token prompts from seed 1, ``--tokens`` new tokens.  The
-other archs of the reference (MoE, recsys, GNN) raise "not yet ported".
+``--arch <lm id>`` (gemma-7b, phi3-medium-14b, internlm2-1.8b, and the MoE
+LMs granite-moe-1b-a400m and kimi-k2-1t-a32b) runs prefill and greedy
+decode on the smoke-reduced model, as the reference's ``serve_lm`` does:
+random weights from seed 0, a batch of ``--batch`` (default 4) 16-token
+prompts from seed 1, ``--tokens`` new tokens.  ``--arch <recsys id>``
+(din, sasrec, bert4rec, mind) scores a batch of ``--batch`` (default 4)
+from the arch's batch maker with numpy seed 0 on the smoke-reduced model
+(params from seed 0), once to warm and once under the clock, as the
+reference's ``serve_recsys`` does.  The GNN (graphsage-reddit) raises "not
+yet ported".
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
 there is no card.
@@ -85,8 +94,8 @@ _CODEC_NAMES = {"auto": "auto", "bitpack": "bp-d1",
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for an arch the port does not have yet
-    (``configs.base.NOT_YET_PORTED``: the reference's MoE, recsys and GNN
-    archs).  Every flag of the reference's serve is ported."""
+    (``configs.base.NOT_YET_PORTED``: the reference's GNN).  Every flag of
+    the reference's serve is ported."""
     arch = getattr(args, "arch", "paper-index")
     if arch in NOT_YET_PORTED:
         raise NotImplementedError(f"arch {arch!r} ({NOT_YET_PORTED[arch]}) "
@@ -699,11 +708,41 @@ def serve_lm(args, spec) -> dict:
     return {"tokens": out, "seconds": dt}
 
 
+def serve_recsys(args, spec) -> dict:
+    """Score one batch of ``--batch`` (default 4) on the smoke-reduced
+    ``spec``, warm, then under the clock; prints the reference's summary
+    line and returns the scores and the wall time."""
+    from repro_torch.data import recsys_data
+    from repro_torch.models import recsys
+    from repro_torch.serve.steps import make_recsys_score_step
+    device = ops.resolve_device(args.device)
+    cfg = spec.smoke_config()
+    params = recsys.INIT[cfg.arch](torch.Generator(device).manual_seed(0),
+                                   cfg, device)
+    rng = np.random.default_rng(0)
+    mk = {"din": recsys_data.din_batch, "sasrec": recsys_data.seq_batch,
+          "bert4rec": recsys_data.bert4rec_batch,
+          "mind": recsys_data.mind_batch}[cfg.arch]
+    batch = args.batch or 4
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in mk(rng, cfg, batch).items()}
+    score = make_recsys_score_step(cfg)
+    score(params, b)                        # warm
+    t0 = time.perf_counter()
+    s = score(params, b).cpu()
+    dt = time.perf_counter() - t0
+    print(f"[serve] {spec.arch_id}: scored batch={batch} in "
+          f"{dt * 1e3:.2f} ms; mean score {float(s.mean()):.4f}")
+    return {"scores": s, "seconds": dt}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="paper-index",
-                    help="paper-index (default), or an LM: gemma-7b, "
-                         "phi3-medium-14b, internlm2-1.8b")
+                    help="paper-index (default); an LM: gemma-7b, "
+                         "phi3-medium-14b, internlm2-1.8b, "
+                         "granite-moe-1b-a400m, kimi-k2-1t-a32b; or a "
+                         "recsys model: din, sasrec, bert4rec, mind")
     ap.add_argument("--queries", type=int, default=20)
     ap.add_argument("--codec", choices=list(_CODEC_NAMES), default="fastpfor",
                     help="posting-list codec family (auto = the cost-model "
@@ -722,8 +761,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--batch", type=int, default=0,
                     help="paper-index: > 1 serves through the batched "
-                         "engine in batches of this size; LM: the batch "
-                         "size (default 4)")
+                         "engine in batches of this size; LM and recsys: "
+                         "the batch size (default 4)")
     ap.add_argument("--tokens", type=int, default=16,
                     help="LM: new tokens to generate")
     ap.add_argument("--fuse", action=argparse.BooleanOptionalAction,
@@ -782,6 +821,8 @@ def main(argv=None):
     spec = get_config(args.arch)
     if spec.family == "lm":
         return serve_lm(args, spec)
+    if spec.family == "recsys":
+        return serve_recsys(args, spec)
     raise SystemExit(f"no serving mode for family {spec.family}")
 
 

@@ -1,17 +1,20 @@
-"""Config-driven decoder-only dense transformer (GQA, RoPE, GeGLU/SwiGLU,
-RMSNorm) and its serving entry points: prefill and decode with a KV cache.
-Covers gemma-7b, phi3-medium-14b and internlm2-1.8b through ``LMConfig``.
+"""Config-driven decoder-only transformer (dense or MoE) with GQA, RoPE,
+GeGLU/SwiGLU, RMSNorm, and its serving entry points: prefill and decode
+with a KV cache.  Covers gemma-7b, phi3-medium-14b, internlm2-1.8b,
+granite-moe-1b-a400m and kimi-k2-1t-a32b through ``LMConfig``.
 
 Port of ``src/repro/models/transformer.py``.  The reference keeps every
 layer weight stacked on a leading ``n_layers`` axis and scans over it; the
 port holds one ``DecoderLayer`` module per layer and loops.  Weights are
 kept in ``param_dtype`` and cast to ``compute_dtype`` at each use, as the
 reference casts them per call; logits are a float32-accumulated product.
+A layer of an MoE config (``n_experts > 0``) holds ``moe.MoE`` (a float32
+router and the stacked expert weights) in place of the dense MLP and runs
+``moe.moe_ffn`` after attention, in prefill and in decode alike.
 ``decode_step`` writes the new K/V into the cache in place at ``pos``
 (the reference's ``dynamic_update_slice``) and returns the same cache.
-An MoE config (``n_experts > 0``) raises ``NotImplementedError``: MoE, and
-the training entry points (``forward``, ``lm_hidden``, ``lm_loss``), come
-with later slices.
+The training entry points (``forward``, ``lm_hidden``, ``lm_loss``) come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +105,8 @@ def _empty(*shape, dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One layer's weights, in the reference's (in, out) layout."""
+    """One layer's weights, in the reference's (in, out) layout: attention,
+    then a dense GLU MLP or, for an MoE config, ``moe`` (``moe.MoE``)."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -112,20 +117,21 @@ class DecoderLayer(nn.Module):
         self.wk = e(d, cfg.n_kv * hd)
         self.wv = e(d, cfg.n_kv * hd)
         self.wo = e(cfg.n_heads * hd, d)
-        self.w_in = e(d, cfg.d_ff)
-        self.w_gate = e(d, cfg.d_ff)
-        self.w_out = e(cfg.d_ff, d)
+        if cfg.is_moe:
+            self.moe = moe.MoE(d, cfg.d_ff, cfg.n_experts,
+                               _dtype(cfg.param_dtype), device)
+        else:
+            self.w_in = e(d, cfg.d_ff)
+            self.w_gate = e(d, cfg.d_ff)
+            self.w_out = e(cfg.d_ff, d)
 
 
 class LM(nn.Module):
-    """A dense LM's weights (uninitialised; see ``init_params`` and
+    """An LM's weights (uninitialised; see ``init_params`` and
     ``convert.params_from_numpy``) on ``device``."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not yet "
-                                      f"ported")
         e = lambda *s: _empty(*s, dtype=_dtype(cfg.param_dtype), device=device)
         self.embed = e(cfg.vocab, cfg.d_model)
         self.final_norm = e(cfg.d_model)
@@ -143,25 +149,26 @@ class LM(nn.Module):
 def init_params(generator: torch.Generator, cfg: LMConfig, device=None) -> LM:
     """Random weights with the reference's scales (normal draws from
     ``generator``, made on the generator's device; norms zero).  The model
-    lands on ``device``: the CUDA card unless the caller passes "cpu"."""
+    lands on ``device``: the CUDA card unless the caller passes "cpu".
+    Expert stacks are drawn one expert at a time, and the router, as the
+    reference's, is drawn in ``param_dtype`` and kept in float32."""
     device = ops.resolve_device(device)
     lm = LM(cfg, device)
     s = 1.0 / np.sqrt(cfg.d_model)
-
-    def fill(p, scale):
-        z = torch.randn(p.shape, generator=generator, device=generator.device)
-        p.copy_(z.mul_(scale))
+    ffn = (("moe.router", s), ("moe.w_in", s), ("moe.w_gate", s),
+           ("moe.w_out", 1.0 / np.sqrt(cfg.d_ff))) if cfg.is_moe else (
+        ("w_in", s), ("w_gate", s), ("w_out", 1.0 / np.sqrt(cfg.d_ff)))
+    pdt = _dtype(cfg.param_dtype)
 
     # the reference's draw order: attention, FFN, embedding, head
     for name, scale in (("wq", s), ("wk", s), ("wv", s),
-                        ("wo", 1.0 / np.sqrt(cfg.n_heads * cfg.hd)),
-                        ("w_in", s), ("w_gate", s),
-                        ("w_out", 1.0 / np.sqrt(cfg.d_ff))):
+                        ("wo", 1.0 / np.sqrt(cfg.n_heads * cfg.hd)), *ffn):
         for layer in lm.layers:
-            fill(getattr(layer, name), scale)
-    fill(lm.embed, 1.0)
+            moe.fill_normal(layer.get_parameter(name), generator, scale,
+                            pdt if name == "moe.router" else None)
+    moe.fill_normal(lm.embed, generator, 1.0)
     if lm.lm_head is not None:
-        fill(lm.lm_head, s)
+        moe.fill_normal(lm.lm_head, generator, s)
     for layer in lm.layers:
         layer.ln1.zero_()
         layer.ln2.zero_()
@@ -204,11 +211,15 @@ def layer_qkv(lp: DecoderLayer, x, cos, sin, cfg: LMConfig):
 
 
 def layer_out(lp: DecoderLayer, x, attn, cfg: LMConfig):
-    """The rest of one layer: output projection, residual, RMSNorm, GLU MLP,
-    residual."""
+    """The rest of one layer: output projection, residual, RMSNorm, the GLU
+    MLP or the MoE layer, residual."""
     B, S = x.shape[:2]
     x = x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ lp.wo.to(x.dtype)
     h = L.rms_norm(x, lp.ln2.float())
+    if cfg.is_moe:
+        out, _ = moe.moe_ffn(lp.moe, h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + out
     return x + L.glu_mlp(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act)
 
 

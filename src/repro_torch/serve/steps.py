@@ -1,14 +1,15 @@
-"""Serve-step factories for the LMs: prefill, decode, and the greedy host
-loop that drives them.
+"""Serve-step factories: LM prefill and decode and the greedy host loop
+that drives them; recsys scoring and retrieval (scores, then the top
+``top_k`` candidates).
 
-Port of the LM half of ``src/repro/serve/steps.py``; the recsys steps come
-with the recsys models.
+Port of ``src/repro/serve/steps.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import recsys as recsys_lib
 from repro_torch.models.transformer import (LMConfig, decode_step,
                                             init_kv_cache, prefill)
 
@@ -23,6 +24,27 @@ def make_decode_step(cfg: LMConfig):
     """One new token against an existing KV cache."""
     def step(params, cache, token, pos):
         return decode_step(params, cache, token, pos, cfg)
+    return step
+
+
+def make_recsys_score_step(cfg: recsys_lib.RecsysConfig):
+    score = recsys_lib.SCORE[cfg.arch]
+
+    @torch.no_grad()
+    def step(params, batch):
+        return score(params, batch, cfg)
+    return step
+
+
+def make_recsys_retrieval_step(cfg: recsys_lib.RecsysConfig, top_k: int = 100):
+    """Scores of every candidate, then ``torch.topk``: (values, indices),
+    values descending.  Among equal scores the order of the indices is
+    torch's, not ``lax.top_k``'s (which puts the lower index first)."""
+    retr = recsys_lib.RETRIEVAL[cfg.arch]
+
+    @torch.no_grad()
+    def step(params, batch):
+        return torch.topk(retr(params, batch, cfg), top_k)
     return step
 
 

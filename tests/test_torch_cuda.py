@@ -1233,3 +1233,100 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         ops.flash_attention(wide, wide, wide)
     assert tfa.MAX_HEAD_DIM == 256
+
+
+# --------------------------------------------------------------------------
+# MoE and recsys on the card (plain torch: no hand kernel on these paths)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E,cf", [(32, 1.25), (384, 1.25), (384, 0.5)])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, E, cf):
+    """moe_ffn_local in float32 on the card against the CPU path: the same
+    experts for every token, outputs within 1e-4 (rtol and atol; the
+    products summed in another order).  E=384 at 64 tokens is kimi's
+    C=2 / C=1 regime."""
+    from repro_torch.models import moe
+    m = moe.init_moe_params(torch.Generator().manual_seed(E), 256, 128, E,
+                            device="cpu")
+    x = torch.randn(4, 16, 256, generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.moe_ffn_local(m, x, top_k=8, capacity_factor=cf)
+    on_card = moe.MoE(256, 128, E, device=cuda)
+    on_card.load_state_dict(m.state_dict())
+    got, aux = moe.moe_ffn_local(on_card, x.to(cuda), top_k=8,
+                                 capacity_factor=cf)
+    ids = [moe._route(p.router, xx.reshape(-1, 256), 8, E)[1].sort(1)
+           .values.cpu() for p, xx in ((m, x), (on_card, x.to(cuda)))]
+    assert torch.equal(ids[0], ids[1])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert float(aux) == pytest.approx(float(want_aux), abs=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_moe_prefill_repeats_bit_equal_on_the_card(cuda, arch, dtype):
+    """Two prefills of an MoE LM give bit-equal logits and caches: the
+    dispatch and the combine are gathers, with no atomics."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(arch).smoke_config(),
+                              compute_dtype=dtype)
+    lm = tfm.init_params(torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    tokens = torch.randint(0, cfg.vocab, (4, 128), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    a, ca = tfm.prefill(lm, tokens, cfg)
+    b, cb = tfm.prefill(lm, tokens, cfg)
+    assert torch.equal(a, b) and torch.equal(ca["k"], cb["k"]) and \
+        torch.equal(ca["v"], cb["v"])
+    assert bool(torch.isfinite(a).all())
+
+
+def _top_k_agree(values, indices, want_values, want_indices, tol=1e-4):
+    """Values within ``tol``; indices equal outside tie groups (runs of
+    values closer than 2·tol), a group's set equal where it ends before
+    rank k."""
+    torch.testing.assert_close(values, want_values, rtol=tol, atol=tol)
+    v = want_values.numpy()
+    k = len(v)
+    starts = np.flatnonzero(np.r_[True, np.abs(np.diff(v)) > 2 * tol])
+    for lo, hi in zip(starts, np.r_[starts[1:], k]):
+        if hi == k and hi - lo > 1:
+            continue
+        assert sorted(indices[lo:hi].tolist()) == \
+            sorted(want_indices[lo:hi].tolist()), (lo, hi)
+
+
+@pytest.mark.parametrize("arch", ["din", "sasrec", "bert4rec", "mind"])
+def test_recsys_steps_on_the_card_match_the_cpu(cuda, arch):
+    """One score step (64 rows) and one retrieval step (4096 candidates,
+    top 100) of the smoke config on the card against the CPU path on the
+    same params and batch: scores within 1e-4, top-100 values within 1e-4
+    and indices equal outside ties (Zipf candidates repeat ids)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import recsys_data as rd
+    from repro_torch.models import recsys
+    from repro_torch.serve import steps
+    cfg = get_config(arch).smoke_config()
+    params = recsys.INIT[arch](torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+    on_card = to(params, cuda)
+    maker = {"din": rd.din_batch, "sasrec": rd.seq_batch,
+             "bert4rec": rd.bert4rec_batch, "mind": rd.mind_batch}[arch]
+    rng = np.random.default_rng(2)
+    b = {k: torch.from_numpy(v) for k, v in maker(rng, cfg, 64).items()}
+    score = steps.make_recsys_score_step(cfg)
+    torch.testing.assert_close(score(on_card, to(b, cuda)).cpu(),
+                               score(params, b), rtol=1e-4, atol=1e-4)
+    r = {k: torch.from_numpy(v)
+         for k, v in rd.retrieval_batch(rng, cfg, 4096).items()}
+    retrieve = steps.make_recsys_retrieval_step(cfg, 100)
+    gv, gi = retrieve(on_card, to(r, cuda))
+    wv, wi = retrieve(params, r)
+    _top_k_agree(gv.cpu(), gi.cpu(), wv, wi)

@@ -187,4 +187,4 @@ def test_serve_runs_on_cpu_and_refuses_later_slices(capsys, tmp_path):
         assert ("--wal" not in flags) or "[serve] recovery check:" in out
         assert ("--chaos" not in flags) or "recovering from" in out
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_serve.main(["--arch", "sasrec", "--device", "cpu"])
+        t_serve.main(["--arch", "graphsage-reddit", "--device", "cpu"])
