@@ -14,7 +14,8 @@ Phases, each fatal on failure, each timed:
      each printing its differential line (the last also its chaos and
      recovery lines); ``serve --arch <id> --tokens 4`` for gemma-7b,
      granite-moe-1b-a400m and kimi-k2-1t-a32b and ``serve --arch <id>``
-     for din, sasrec, bert4rec and mind (the smoke-reduced models);
+     for din, sasrec, bert4rec and mind (the smoke-reduced models); the
+     training launcher at smoke size (see phase 8);
   2. each kernel against its plain PyTorch version on the card, exact
      (torch.equal): K1 over widths 0–32, K = 1, 3, WARPS ± 1 blocks and
      clamped word reads × six modes × rows 32/8, K2a/K2b over M 128…2**16
@@ -133,7 +134,40 @@ Phases, each fatal on failure, each timed:
      and cut to the top 100, each timed (ms a batch, items/s, peak memory)
      and held against the port's CPU path on the same params and batch,
      run in row chunks: scores within 1e-4, top-100 values within 1e-4
-     and indices equal outside tie groups.
+     and indices equal outside tie groups;
+  8. in a child process with expandable segments (``run_train_phase``),
+     training: graphsage-reddit at its registered widths (2 layers,
+     d_hidden 128; d_feat, classes and task per shape) on its four shapes
+     (``train_gnn_shape``: minibatch_lg on a 232,965-node power-law graph
+     of about 117M edges made on the card (``card_graph``), 1024 seeds at
+     fanout (15, 10); full_graph_sm, 2708 nodes (``synthetic_graph``);
+     ogb_products, 2,449,029 nodes and about 64M edges (``card_graph``);
+     molecule, 128 graphs of 30 nodes), each a warm step and 3 timed
+     steps of ``make_gnn_train_step`` with AdamW (ms a step, seeds/s or
+     nodes/s, peak memory, finite losses); one step of full_graph_sm,
+     molecule and minibatch_lg (its hops drawn on the card, moved) held
+     against the CPU path (``step_against_cpu``: loss within 1e-4, each
+     gradient leaf within 1e-4 in norm, then both devices apply the card's
+     gradients, params and moments within 1e-6); resume through
+     ``Trainer`` bitwise (``resume_is_bitwise``: 4 steps against 2 +
+     checkpoint + restore + 2, torch.equal) for minibatch_lg and
+     full_graph_sm; K1 in the data path
+     (``k1_in_the_data_path``): a ``CompressedCSR`` of a 60,000-node graph
+     and ``grad_compress.decode_wire`` of the top 2**16 of 2**24
+     coordinates decoded on the card, equal to the host decode, the
+     Reddit-size graph refused past the codec's 2**32 domain (K1's launches
+     here are added to its count); internlm2-1.8b at full width
+     (``train_lm_full``: 1,889,107,968 float32 parameters, bf16 compute,
+     remat dots, AdamW) a warm step and 3 timed steps on 1 x 4096 tokens
+     (tok/s, ms a step, peak memory, a profiled step's idle share), the
+     2-layer float32 cut against the CPU at 128 tokens (within 1e-3), and
+     bitwise resume at the smoke widths (vocab 512); din, sasrec, bert4rec
+     (cut to 2**13 rows) and mind on train_batch (65,536 rows) at their
+     registered widths (``train_recsys``), each timed and profiled, and
+     one step on 2**11 rows held against the CPU path.  Phase 1 also runs
+     ``python -m repro_torch.launch.train --arch <id> --steps 20
+     --ckpt-every 10`` for graphsage-reddit, internlm2-1.8b and din
+     (``train_launcher_cli``).
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
@@ -2349,13 +2383,18 @@ def serve_kimi(dev, layers: int) -> dict:
 # phase 7: recsys scoring and retrieval at the registered widths
 # --------------------------------------------------------------------------
 
-def tree_to(tree, device):
-    """A recsys params tree (dicts and lists of tensors) on ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+def params_to_cpu(params):
+    """A detached copy of a params tree (or an LM module) on the CPU."""
+    from repro_torch.models import transformer
+    if isinstance(params, transformer.LM):
+        cpu = transformer.LM(params.cfg, "cpu")
+        cpu.load_state_dict(params.state_dict())
+        return cpu
+    if isinstance(params, dict):
+        return {k: params_to_cpu(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to_cpu(v) for v in params]
+    return params.detach().to("cpu", copy=True)
 
 
 def tree_numel(tree) -> int:
@@ -2475,7 +2514,7 @@ def serve_recsys_full(dev) -> dict:
         t0 = time.perf_counter()
         params = recsys.INIT[arch](torch.Generator(dev).manual_seed(seed),
                                    cfg, dev)
-        on_cpu = tree_to(params, "cpu")
+        on_cpu = params_to_cpu(params)
         log(f"{arch}: {tree_numel(params)} float32 parameters at the "
             f"registered widths from seed {seed} in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -2531,6 +2570,604 @@ def serve_recsys_full(dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return rec
+
+
+# --------------------------------------------------------------------------
+# phase 8: training (graphsage-reddit, internlm2-1.8b, the recsys archs)
+# --------------------------------------------------------------------------
+
+GNN_ARCH = "graphsage-reddit"
+# avg_degree of synthetic_graph for each registered graph: chosen so the
+# symmetrised, deduplicated edges come near the registered n_edges
+GNN_DEGREE = {"full_graph_sm": 2, "minibatch_lg": 266, "ogb_products": 13}
+GNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products")
+GNN_AGAINST_CPU = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_RESUME = ("full_graph_sm", "minibatch_lg")
+TRAIN_STEPS = 3                # timed steps, after one warm step
+RESUME_N = 2                   # 2N steps against N, a checkpoint, N more
+# a step against the CPU path: the loss within TRAIN_TOL·(1 + |loss|), each
+# gradient leaf normwise, ||g_card - g_cpu|| <= TRAIN_TOL·||g_cpu|| (float32
+# sums in another order; an entry whose terms cancel, such as bert4rec's
+# pos_embed, a sum over the batch, is off by more than TRAIN_TOL of the
+# leaf's largest entry: 3.48e-6 against 0.012 at 2048 rows, so the norm
+# weighs each entry by its share of the leaf).  AdamW divides each
+# coordinate by its own scale, so a gradient at rounding level would move
+# its parameter by up to lr: the update is held apart, both devices apply
+# the card's gradients, and the parameters and moments must agree within
+# UPDATE_TOL·(1 + |p|).
+TRAIN_TOL = 1e-4
+LM_TRAIN_TOL = 1e-3            # the 2-layer float32 LM cut, 92544-way softmax
+UPDATE_TOL = 1e-6
+LM_TRAIN_ARCH = "internlm2-1.8b"
+LM_TRAIN_SEQ = 4096            # one sequence of train_4k
+LM_CUT_SEQ = 128               # the 2-layer cut held against the CPU
+RECSYS_TRAIN_CUTS = {"bert4rec": 1 << 13}
+# rows of the recsys step held against the CPU path: the weight gradients
+# sum rows x seq_len products (409,600 for bert4rec), and float32 sums of
+# that length in two orders agree to about sqrt(n)·2**-24 of their terms
+RECSYS_CHECK_ROWS = 1 << 11
+CSR_GRAPH = (60000, 8)         # within the codec's 2**32 domain
+GRAD_N, GRAD_K = 1 << 24, 1 << 16
+TRAIN_ALLOC_CONF = "expandable_segments:True"
+TRAIN_RESULT = ROOT / "build" / "phase8.json"
+
+
+def _finite(what: str, loss) -> float:
+    v = float(loss)
+    if not np.isfinite(v):
+        raise AssertionError(f"{what}: loss {v} is not finite")
+    return v
+
+
+def step_against_cpu(what, loss_fn, params, opt, batch, opt_cfg,
+                     tol: float = TRAIN_TOL) -> dict:
+    """One step on the card held against the port's CPU path from the same
+    params, optimizer state and batch: loss and gradients (normwise) within
+    ``tol`` (see TRAIN_TOL), then each device applies the card's gradients
+    and the params and moments agree within UPDATE_TOL.  The card's params
+    and ``opt`` take the step."""
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    p_cpu = params_to_cpu(params)
+    o_cpu = {k: params_to_cpu(v) for k, v in opt.items()}
+    b_cpu = {k: v.cpu() for k, v in batch.items()}
+    loss_k, _, g_k = train_steps.loss_and_grads(loss_fn, params, batch)
+    loss_c, _, g_c = train_steps.loss_and_grads(loss_fn, p_cpu, b_cpu)
+    lk, lc = float(loss_k), float(loss_c)
+    if not abs(lk - lc) <= tol * (1 + abs(lc)):
+        raise AssertionError(f"{what}: loss {lk} on the card, {lc} on the "
+                             f"CPU")
+    worst = 0.0
+    for (path, _), a, b in zip(tree.items(params), g_k, g_c):
+        norm = float(torch.linalg.vector_norm(b))
+        err = float(torch.linalg.vector_norm(a.cpu() - b))
+        if not err <= tol * norm + 1e-12:
+            raise AssertionError(f"{what}: gradient {path} differs by {err} "
+                                 f"in norm (its norm {norm})")
+        worst = max(worst, err / norm if norm else 0.0)
+    with torch.no_grad():
+        adamw.update(g_k, opt, params, opt_cfg)
+        adamw.update([g.cpu() for g in g_k], o_cpu, p_cpu, opt_cfg)
+    upd = 0.0
+    for a, b in zip(tree.leaves(params) + opt["mu"] + opt["nu"],
+                    tree.leaves(p_cpu) + o_cpu["mu"] + o_cpu["nu"]):
+        upd = max(upd, expect_allclose(f"{what} after the step", a.detach(),
+                                       b.detach(), UPDATE_TOL))
+    log(f"{what}: one step against the CPU path: loss {lk} / {lc}, "
+        f"gradients within {worst:.2e} of each leaf's norm (tolerance "
+        f"{tol}), params and moments after the card's gradients within "
+        f"{upd:.2e} (tolerance {UPDATE_TOL}·(1 + |p|))")
+    return {"loss_card": lk, "loss_cpu": lc, "grad_rel_err": worst,
+            "update_err": upd}
+
+
+def resume_is_bitwise(what, make_trainer, n: int = RESUME_N) -> None:
+    """2n steps through ``Trainer`` against n steps, a checkpoint, a fresh
+    Trainer restored from it and n more: params, optimizer state and the
+    generator's state torch.equal.  ``make_trainer(ckpt_dir, total, skip)``
+    builds a Trainer from fresh seeded state whose data skips ``skip``
+    batches."""
+    from repro_torch import tree
+    (ROOT / "build").mkdir(exist_ok=True)
+    top = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    try:
+        a = make_trainer(str(top / "a"), 2 * n, 0)
+        a.run()
+        b = make_trainer(str(top / "b"), n, 0)
+        b.run()
+        b.mgr.wait()
+        c = make_trainer(str(top / "b"), 2 * n, n)
+        start = c.try_restore()
+        if start != n:
+            raise AssertionError(f"{what}: restored step {start}, not {n}")
+        c.run(start)
+        want = tree.leaves({"p": a.params, "o": a.opt_state,
+                            "g": a.generator.get_state()})
+        got = tree.leaves({"p": c.params, "o": c.opt_state,
+                           "g": c.generator.get_state()})
+        bad = [i for i, (x, y) in enumerate(zip(got, want))
+               if not torch.equal(x, y)]
+        if len(got) != len(want) or bad:
+            raise AssertionError(f"{what}: resume not bitwise: leaves {bad} "
+                                 f"of {len(want)} differ")
+        log(f"{what}: resume bitwise ({2 * n} steps against {n} + "
+            f"checkpoint + restore + {n}; {len(want)} leaves torch.equal)")
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
+def _device_batch(b: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in b.items()}
+
+
+def card_graph(n_nodes: int, avg_degree: int, seed: int, d_feat: int,
+               n_classes: int, dev) -> dict:
+    """``graph_data.synthetic_graph``'s construction with torch draws on the
+    card: src uniform, dst from the same power-law cdf (numpy's
+    ``choice(p=w)`` is a right searchsorted of uniform draws in it),
+    self-loops dropped, both directions, deduplicated and sorted (CSR
+    order), features normal, labels the argmax of the first n_classes
+    features.  Another generator than numpy's, so other bits than
+    ``synthetic_graph``'s; made here because numpy took 587 s on the card's
+    host for Reddit's 62M draws and 117M edges."""
+    g = torch.Generator(dev).manual_seed(seed)
+    n_edges = n_nodes * avg_degree
+    w = (1.0 / (torch.arange(n_nodes, dtype=torch.float64, device=dev)
+                + 1.0)) ** 0.8
+    cdf = torch.cumsum(w / w.sum(), 0)
+    cdf /= cdf[-1].clone()
+    src = torch.randint(0, n_nodes, (n_edges,), generator=g, device=dev)
+    u = torch.rand(n_edges, generator=g, dtype=torch.float64, device=dev)
+    dst = torch.searchsorted(cdf, u, right=True).clamp_max_(n_nodes - 1)
+    del u
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    key = torch.unique(torch.cat([src * n_nodes + dst, dst * n_nodes + src]))
+    del src, dst, keep
+    src = (key // n_nodes).to(torch.int32)
+    dst = (key % n_nodes).to(torch.int32)
+    del key
+    indptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(src, minlength=n_nodes), 0)
+    x = torch.randn(n_nodes, d_feat, generator=g, device=dev)
+    return {"indptr": indptr.to(torch.int32), "indices": dst,
+            "edge_src": src, "edge_dst": dst, "x": x,
+            "labels": torch.argmax(x[:, :n_classes], dim=1).to(torch.int32),
+            "train_mask": torch.rand(n_nodes, generator=g, device=dev) < 0.5}
+
+
+def gnn_data(name: str, sh: dict, dev) -> dict:
+    """The shape's graph (or molecule batch) on the card, from seed 8:
+    Cora's and the molecules from the port's numpy makers, the two large
+    graphs from ``card_graph``."""
+    from repro_torch.data import graph_data
+    t0 = time.perf_counter()
+    if sh["kind"] == "molecule":
+        mb = graph_data.molecule_batch(np.random.default_rng(8), sh["batch"],
+                                       sh["n_nodes"], sh["n_edges"],
+                                       sh["d_feat"])
+        log(f"{GNN_ARCH} {name}: {sh['batch']} graphs x {sh['n_nodes']} "
+            f"nodes x {sh['n_edges']} edges")
+        return {"batch": _device_batch(mb, dev)}
+    args = (sh["n_nodes"], GNN_DEGREE[name], 8, sh["d_feat"],
+            sh["n_classes"])
+    if name == "full_graph_sm":
+        g = _device_batch(graph_data.synthetic_graph(*args), dev)
+        how = "synthetic_graph"
+    else:
+        g = card_graph(*args, dev)
+        torch.cuda.synchronize()
+        how = "card_graph"
+    log(f"{GNN_ARCH} {name}: {how}({sh['n_nodes']}, {GNN_DEGREE[name]}) "
+        f"gave {len(g['indices'])} edges (registered {sh['n_edges']}), "
+        f"d_feat {sh['d_feat']}, {sh['n_classes']} classes, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if sh["kind"] == "full":
+        return {"batch": {k: g[k] for k in ("x", "edge_src", "edge_dst",
+                                           "labels", "train_mask")}}
+    return {"graph": {"feats": g["x"], "indptr": g["indptr"],
+                      "indices": g["indices"]}, "labels": g["labels"]}
+
+
+def gnn_batches(data: dict, sh: dict, seed: int):
+    """The shape's batches: the whole graph (or molecule batch) each step;
+    for the minibatch, batch_nodes seeds a step from a numpy seed."""
+    if "batch" in data:
+        while True:
+            yield data["batch"]
+    rng = np.random.default_rng(seed)
+    g, labels = data["graph"], data["labels"]
+    while True:
+        seeds = torch.from_numpy(rng.integers(
+            0, sh["n_nodes"], size=sh["batch_nodes"]).astype(np.int32)).to(
+            labels.device)
+        yield {**g, "seeds": seeds, "labels": labels[seeds.long()]}
+
+
+def ogb_reckoning(sh: dict, cfg) -> int:
+    """Peak bytes reckoned for a full-graph step: the gathered messages of
+    the widest layer (E x max(d_feat, d_hidden) float32) beside the
+    features, the hidden states, the edge lists and both sort plans."""
+    N, E = sh["n_nodes"], sh["n_edges"]
+    d = max(sh["d_feat"], cfg.d_hidden)
+    return (E * d * 4 + N * sh["d_feat"] * 4 + 6 * N * cfg.d_hidden * 4
+            + 2 * E * 4 + 6 * E * 8)
+
+
+def train_gnn_shape(dev, name: str, data=None) -> dict:
+    """graphsage-reddit on one registered shape: a warm step, TRAIN_STEPS
+    timed steps (ms a step, seeds/s or nodes/s, peak memory, finite
+    losses), the step against the CPU path, resume through Trainer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    spec = get_config(GNN_ARCH)
+    sh = spec.shapes[name]
+    cfg = dataclasses.replace(
+        spec.config, d_feat=sh["d_feat"], n_classes=sh["n_classes"],
+        task="graph" if sh["kind"] == "molecule" else "node")
+    variant = {"full": "full", "minibatch": "minibatch",
+               "molecule": "molecule"}[sh["kind"]]
+    fanout = sh.get("fanout", (15, 10))
+    opt_cfg = adamw.AdamWConfig(weight_decay=0.0)
+    if name == "ogb_products":
+        log(f"{GNN_ARCH} {name}: reckoned peak {ogb_reckoning(sh, cfg)} "
+            f"bytes of {torch.cuda.get_device_properties(0).total_memory}: "
+            f"no cut")
+    data = data or gnn_data(name, sh, dev)
+    step = train_steps.make_gnn_train_step(cfg, variant, opt_cfg,
+                                           fanout=fanout)
+
+    def fresh(seed=0):
+        p = gnn.init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
+        return p, adamw.init(p, opt_cfg)
+
+    params, opt = fresh()
+    gen = torch.Generator(dev).manual_seed(1)
+    it = gnn_batches(data, sh, seed=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, opt, m = step(params, opt, next(it), gen)
+    losses = [_finite(f"{name} warm step", m["loss"])]
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        params, opt, m = step(params, opt, b, gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [_finite(f"{name} step", v) for v in losses]
+    if sh["kind"] == "minibatch":
+        rate = f"{sh['batch_nodes'] / sec:.1f} seeds/s"
+    elif sh["kind"] == "molecule":
+        rate = f"{sh['batch'] * sh['n_nodes'] / sec:.1f} nodes/s"
+    else:
+        rate = f"{sh['n_nodes'] / sec:.1f} nodes/s"
+    log(f"{GNN_ARCH} {name} ({variant}, d_feat {cfg.d_feat}, d_hidden "
+        f"{cfg.d_hidden}, {cfg.n_classes} classes): {sec * 1e3:.3f} ms a "
+        f"step, {rate}, peak device memory {peak} bytes ({peak - base} "
+        f"above the {base} allocated before the first step), losses "
+        f"{[round(v, 5) for v in losses]} (finite)")
+    rec = {"ms": sec * 1e3, "rate": rate, "peak_bytes": peak,
+           "base_bytes": base, "losses": losses}
+    del batches
+    if name in GNN_AGAINST_CPU:
+        b = next(it)
+        if variant == "minibatch":
+            l1, l2 = gnn.sample_hops(gen, b["indptr"], b["indices"],
+                                     b["seeds"], fanout)
+            b = {"feats": b["feats"], "seeds": b["seeds"],
+                 "labels": b["labels"], "l1": l1, "l2": l2}
+            loss_fn = lambda p, bb: gnn.minibatch_loss(p, bb, None, cfg,
+                                                       fanout)
+        elif variant == "full":
+            loss_fn = lambda p, bb: gnn.node_loss(p, bb, cfg)
+        else:
+            loss_fn = lambda p, bb: gnn.molecule_loss(p, bb, cfg)
+        rec["against_cpu"] = step_against_cpu(f"{GNN_ARCH} {name}", loss_fn,
+                                              params, opt, b, opt_cfg)
+    if name in GNN_RESUME:
+        def make_trainer(ckpt_dir, total, skip):
+            p, o = fresh()
+            it2 = gnn_batches(data, sh, seed=3)
+            for _ in range(skip):
+                next(it2)
+            return Trainer(step, p, o, it2, TrainerConfig(
+                total_steps=total, ckpt_every=RESUME_N, ckpt_dir=ckpt_dir),
+                generator=torch.Generator(dev).manual_seed(4))
+        resume_is_bitwise(f"{GNN_ARCH} {name}", make_trainer)
+    return rec
+
+
+def k1_in_the_data_path(dev, reddit: dict) -> int:
+    """CompressedCSR and the gradient wire decode through K1 on the card,
+    equal to the host decode; the Reddit-size graph is refused.  Returns
+    K1's launches here."""
+    from repro_torch.data import graph_data
+    from repro_torch.distributed import grad_compress
+    from repro_torch.kernels import ops
+    n0 = ops.launches()["unpack_blocks"]
+    n, deg = CSR_GRAPH
+    g = graph_data.synthetic_graph(n, deg, seed=1)
+    csr = graph_data.CompressedCSR.compress(g["indptr"], g["indices"], n)
+    host = csr.decompress()
+    t0 = time.perf_counter()
+    got = csr.to(dev).decompress()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = torch.from_numpy(g["indices"])
+    if not (torch.equal(got.cpu(), want) and torch.equal(host, want)):
+        raise AssertionError("CompressedCSR: the card's decode differs")
+    log(f"CompressedCSR of synthetic_graph({n}, {deg}): {len(want)} edges, "
+        f"{csr.bits_per_edge():.3f} bits/edge, decoded on the card in "
+        f"{ms:.3f} ms, equal to indices and to the host decode")
+    N = len(reddit["indptr"]) - 1
+    try:
+        graph_data.CompressedCSR.compress(reddit["indptr"].cpu().numpy(),
+                                          reddit["indices"].cpu().numpy(), N)
+    except ValueError as e:
+        log(f"CompressedCSR of the {N}-node graph refused: {e}")
+    else:
+        raise AssertionError(f"CompressedCSR compressed {N} nodes past "
+                             f"the codec's 2**32 domain")
+    gen = torch.Generator(dev).manual_seed(6)
+    grad = torch.randn(GRAD_N, generator=gen, device=dev)
+    idx, vals, res = grad_compress.sparsify(grad, torch.zeros_like(grad),
+                                            GRAD_K)
+    packed, vals16 = grad_compress.encode_wire(idx, vals)
+    h_idx, h_vals = grad_compress.decode_wire(packed, vals16)
+    d_idx, d_vals = grad_compress.decode_wire(packed.to(dev), vals16.to(dev))
+    if not (torch.equal(d_idx.cpu(), idx.cpu())
+            and torch.equal(h_idx, idx.cpu())
+            and torch.equal(d_vals.cpu(), h_vals)):
+        raise AssertionError("grad_compress: the card's decode_wire differs")
+    ratio = grad_compress.compress_ratio(GRAD_N, GRAD_K, packed)
+    log(f"grad_compress: top {GRAD_K} of {GRAD_N} coordinates, "
+        f"{grad_compress.wire_bits_per_coord(packed):.3f} bits a coordinate "
+        f"on the wire, ratio {ratio:.1f}; decode_wire on the card gave the "
+        f"indices exactly")
+    k1 = ops.launches()["unpack_blocks"] - n0
+    if k1 < 2:
+        raise AssertionError(f"K1 launched {k1} times for the two decodes")
+    return k1
+
+
+def train_lm_full(dev) -> dict:
+    """internlm2-1.8b at full width (float32 params, bf16 compute, remat
+    dots): a warm step, then TRAIN_STEPS timed steps on 1 x 4096 tokens and
+    one profiled; the 2-layer float32 cut against the CPU at 128 tokens;
+    resume through Trainer at the smoke widths."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    spec = get_config(LM_TRAIN_ARCH)
+    cfg = spec.config
+    opt_cfg = adamw.AdamWConfig()
+    t0 = time.perf_counter()
+    lm = transformer.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                                 dev)
+    opt = adamw.init(lm, opt_cfg)
+    log(f"{LM_TRAIN_ARCH}: {cfg.param_count()} float32 parameters "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}) and AdamW state on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    stream = TokenStream(cfg.vocab, seed=0)
+    batches = [_device_batch(stream.batch(1, LM_TRAIN_SEQ), dev)
+               for _ in range(TRAIN_STEPS + 2)]
+    step = train_steps.make_lm_train_step(cfg, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    lm, opt, m = step(lm, opt, batches[0])
+    losses = [_finite("internlm2 warm step", m["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:TRAIN_STEPS + 1]:
+        lm, opt, m = step(lm, opt, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [_finite("internlm2 step", v) for v in losses]
+    log(f"{LM_TRAIN_ARCH} train_4k (1 x {LM_TRAIN_SEQ}): {sec * 1e3:.3f} ms "
+        f"a step, {LM_TRAIN_SEQ / sec:.1f} tok/s, peak device memory {peak} "
+        f"bytes, losses {[round(v, 4) for v in losses]} (finite)")
+    profile_report(f"{LM_TRAIN_ARCH} train step",
+                   lambda: step(lm, opt, batches[-1]),
+                   f"one step of {LM_TRAIN_SEQ} tokens")
+    rec = {"ms": sec * 1e3, "tok_s": LM_TRAIN_SEQ / sec, "peak_bytes": peak,
+           "losses": losses}
+    del lm, opt, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    lm = transformer.init_params(torch.Generator(dev).manual_seed(1), cut,
+                                 dev)
+    opt = adamw.init(lm, opt_cfg)
+    b = _device_batch(TokenStream(cfg.vocab, seed=1).batch(1, LM_CUT_SEQ),
+                      dev)
+    rec["cut_against_cpu"] = step_against_cpu(
+        f"{LM_TRAIN_ARCH} cut to 2 layers, float32, 1 x {LM_CUT_SEQ}",
+        lambda p, bb: transformer.lm_loss(p, bb, cut), lm, opt, b, opt_cfg,
+        LM_TRAIN_TOL)
+    del lm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = spec.smoke_config()
+    small_opt = adamw.AdamWConfig(lr=3e-3)
+    small_step = train_steps.make_lm_train_step(small, small_opt)
+
+    def make_trainer(ckpt_dir, total, skip):
+        p = transformer.init_params(torch.Generator(dev).manual_seed(0),
+                                    small, dev)
+        s = TokenStream(small.vocab, seed=0)
+
+        def it():
+            while True:
+                yield _device_batch(s.batch(8, 64), dev)
+        data = it()
+        for _ in range(skip):
+            next(data)
+        return Trainer(small_step, p, adamw.init(p, small_opt), data,
+                       TrainerConfig(total_steps=total, ckpt_every=RESUME_N,
+                                     ckpt_dir=ckpt_dir))
+    resume_is_bitwise(f"{LM_TRAIN_ARCH} smoke widths (vocab "
+                      f"{small.vocab}, 8 x 64 tokens)", make_trainer)
+    return rec
+
+
+def train_recsys(dev) -> dict:
+    """din, sasrec, bert4rec and mind at their registered widths on the
+    train_batch shape (bert4rec cut): a warm step, TRAIN_STEPS timed steps
+    and a profiled one on one batch (made once: numpy's batch makers are
+    slow on the card's host), then one step on a batch of
+    RECSYS_CHECK_ROWS rows held against the CPU path on the same batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import recsys_data as rd
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    makers = {"din": rd.din_batch, "sasrec": rd.seq_batch,
+              "bert4rec": rd.bert4rec_batch, "mind": rd.mind_batch}
+    out = {}
+    for seed, arch in enumerate(RECSYS_ARCHS):
+        spec = get_config(arch)
+        cfg = spec.config
+        full_n = spec.shapes["train_batch"]["batch"]
+        n = RECSYS_TRAIN_CUTS.get(arch, full_n)
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, weight_decay=0.0)
+        params = recsys.INIT[arch](torch.Generator(dev).manual_seed(seed),
+                                   cfg, dev)
+        opt = adamw.init(params, opt_cfg)
+        rng = np.random.default_rng(200 + seed)
+        batch = _device_batch(makers[arch](rng, cfg, n), dev)
+        check = _device_batch(makers[arch](rng, cfg, RECSYS_CHECK_ROWS), dev)
+        step = train_steps.make_recsys_train_step(cfg, opt_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, m = step(params, opt, batch)
+        losses = [_finite(f"{arch} warm step", m["loss"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            params, opt, m = step(params, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        losses = [_finite(f"{arch} step", v) for v in losses]
+        cut_note = "" if n == full_n else f" (cut from {full_n})"
+        log(f"{arch} train_batch: {n}{cut_note} rows, {tree_numel(params)} "
+            f"parameters: {sec * 1e3:.3f} ms a step, {n / sec:.1f} rows/s, "
+            f"peak device memory {peak} bytes, losses "
+            f"{[round(v, 5) for v in losses]} (finite)")
+        out[arch] = {"n": n, "ms": sec * 1e3, "rows_s": n / sec,
+                     "peak_bytes": peak, "losses": losses}
+        profile_report(f"{arch} train step",
+                       lambda: step(params, opt, batch),
+                       f"one step of {n} rows")
+        out[arch]["against_cpu"] = step_against_cpu(
+            f"{arch} train_batch, a batch of {RECSYS_CHECK_ROWS} rows",
+            lambda p, bb: recsys.LOSS[arch](p, bb, cfg), params, opt, check,
+            opt_cfg)
+        del params, opt, batch, check, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_full(dev) -> dict:
+    """Phase 8 (in its own process): graphsage-reddit on its four shapes
+    with K1 in its data path, internlm2-1.8b at full width, the recsys
+    archs on train_batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    rec = {}
+    t0 = time.perf_counter()
+    spec = get_config(GNN_ARCH)
+    reddit = gnn_data("minibatch_lg", spec.shapes["minibatch_lg"], dev)
+    rec["k1_launches"] = k1_in_the_data_path(dev, reddit["graph"])
+    for name in GNN_SHAPES:
+        rec[name] = train_gnn_shape(dev, name,
+                                    reddit if name == "minibatch_lg" else None)
+        if name == "minibatch_lg":
+            del reddit
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 8 GNN done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    rec[LM_TRAIN_ARCH] = train_lm_full(dev)
+    log(f"phase 8 LM done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    rec["recsys"] = train_recsys(dev)
+    log(f"phase 8 recsys done in {time.perf_counter() - t1:.1f} s")
+    launches = ops.launches()
+    if launches["unpack_blocks"] < rec["k1_launches"]:
+        raise AssertionError(f"phase 8: K1 counted {launches} after "
+                             f"{rec['k1_launches']} data-path decodes")
+    return rec
+
+
+def train_child() -> None:
+    """Phase 8's process: ``train_full`` on the card; its K1 launches and
+    seconds go to TRAIN_RESULT for the parent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    log(f"phase 8 in its own process (PYTORCH_CUDA_ALLOC_CONF="
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
+    rec = train_full(torch.device("cuda"))
+    rec["seconds"] = time.perf_counter() - t0
+    TRAIN_RESULT.write_text(json.dumps(rec))
+    log(f"phase 8's process done in {rec['seconds']:.1f} s")
+
+
+def run_train_phase() -> dict:
+    """Phase 8 in a child process with TRAIN_ALLOC_CONF, after this
+    process has given back its cached memory; fails if the child does.
+    Returns the child's record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    TRAIN_RESULT.parent.mkdir(exist_ok=True)
+    TRAIN_RESULT.unlink(missing_ok=True)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=TRAIN_ALLOC_CONF)
+    subprocess.run([sys.executable, "-c",
+                    "import chip_smoke; chip_smoke.train_child()"],
+                   cwd=ROOT, env=env, check=True, timeout=600)
+    return json.loads(TRAIN_RESULT.read_text())
+
+
+def train_launcher_cli() -> None:
+    """Phase 1's training launcher at smoke size: 20 steps with a
+    checkpoint every 10 for one arch of each family; each prints its
+    result dict with two finite losses."""
+    from repro_torch.launch import train
+    (ROOT / "build").mkdir(exist_ok=True)
+    top = tempfile.mkdtemp(prefix="launch-", dir=ROOT / "build")
+    try:
+        for arch in (GNN_ARCH, LM_TRAIN_ARCH, "din"):
+            res = train.main(["--arch", arch, "--steps", "20",
+                              "--ckpt-every", "10",
+                              "--ckpt-dir", str(Path(top) / arch)])
+            if res["step"] != 20 or len(res["history"]) != 2 or not \
+                    np.isfinite(res["history"]).all():
+                raise AssertionError(f"train --arch {arch} gave {res}")
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
 
 
 def phase_done(k: int, t0: float) -> float:
@@ -2699,6 +3336,7 @@ def main(argv=None) -> int:
                 torch.isfinite(rs["scores"]).all()):
             raise AssertionError(f"serve --arch {arch} gave scores "
                                  f"{rs['scores']}")
+    train_launcher_cli()
     t_phase = phase_done(1, t_phase)
 
     t0 = time.perf_counter()
@@ -2787,7 +3425,13 @@ def main(argv=None) -> int:
     serve_moe(dev)
     t_phase = phase_done(6, t_phase)
     run_recsys_phase()
-    phase_done(7, t_phase)
+    t_phase = phase_done(7, t_phase)
+    train = run_train_phase()
+    k1 = next(k for k in kernels if k["name"] == "unpack_blocks")
+    k1["launches"] += train["k1_launches"]
+    log(f"phase 8: K1 launched {train['k1_launches']} times in the data "
+        f"path (added to K1's main-path launches, now {k1['launches']})")
+    phase_done(8, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

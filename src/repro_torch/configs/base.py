@@ -2,11 +2,12 @@
 (``--arch <id>``) with its input-shape set.
 
 Port of ``src/repro/configs/base.py``.  The registry loads the archs the
-port has: the dense LMs (gemma-7b, phi3-medium-14b, internlm2-1.8b), the
-MoE LMs (granite-moe-1b-a400m, kimi-k2-1t-a32b), the recsys models (din,
-sasrec, bert4rec, mind) and the paper's index.  An arch that the reference
-registers and the port lacks (the GNN) raises ``NotImplementedError``; an
-id that neither package knows raises ``KeyError``.
+port has: every arch the reference registers, the dense LMs (gemma-7b,
+phi3-medium-14b, internlm2-1.8b), the MoE LMs (granite-moe-1b-a400m,
+kimi-k2-1t-a32b), the GNN (graphsage-reddit), the recsys models (din,
+sasrec, bert4rec, mind) and the paper's index.  An arch listed in
+``NOT_YET_PORTED`` (none now) raises ``NotImplementedError``; an id that
+neither package knows raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -16,17 +17,15 @@ from typing import Any
 
 _REGISTRY: dict[str, "ArchSpec"] = {}
 
-# archs of the reference that later slices of the port bring
-NOT_YET_PORTED = {
-    "graphsage-reddit": "GNN",
-}
+# archs of the reference that later slices of the port bring: none left
+NOT_YET_PORTED: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # 'lm' | 'recsys' | 'index'
-    config: Any                 # LMConfig / RecsysConfig / dict
+    family: str                 # 'lm' | 'gnn' | 'recsys' | 'index'
+    config: Any                 # LMConfig / GNNConfig / RecsysConfig / dict
     shapes: dict[str, dict]     # shape name → shape params
     source: str = ""            # citation tag from the assignment
 
@@ -68,7 +67,7 @@ def _ensure_loaded():
     _loaded = True
     from repro_torch.configs import (  # noqa: F401
         gemma_7b, phi3_medium_14b, internlm2_1_8b, granite_moe_1b, kimi_k2,
-        mind, sasrec, din, bert4rec, paper_index)
+        graphsage_reddit, mind, sasrec, din, bert4rec, paper_index)
 
 
 # Canonical LM shape set (shared by all 5 LM archs)

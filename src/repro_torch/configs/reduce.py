@@ -1,7 +1,6 @@
 """Reduced same-family configs for CPU smoke tests.
 
-Port of the LM and recsys branches of ``src/repro/configs/reduce.py``; the
-GNN branch comes with that model."""
+Port of ``src/repro/configs/reduce.py``."""
 import dataclasses
 
 
@@ -15,6 +14,9 @@ def reduced(spec):
             top_k=min(c.top_k, 2) if c.is_moe else 0,
             param_dtype="float32", remat="none", full_attn_max_seq=256,
             attn_chunk=64)
+    if spec.family == "gnn":
+        c = spec.config
+        return dataclasses.replace(c, d_hidden=32, d_feat=16, n_classes=8)
     if spec.family == "recsys":
         c = spec.config
         return dataclasses.replace(c, n_items=1024, n_cates=64,

@@ -66,8 +66,9 @@ prompts from seed 1, ``--tokens`` new tokens.  ``--arch <recsys id>``
 (din, sasrec, bert4rec, mind) scores a batch of ``--batch`` (default 4)
 from the arch's batch maker with numpy seed 0 on the smoke-reduced model
 (params from seed 0), once to warm and once under the clock, as the
-reference's ``serve_recsys`` does.  The GNN (graphsage-reddit) raises "not
-yet ported".
+reference's ``serve_recsys`` does.  The GNN (graphsage-reddit) has no
+serving mode, as in the reference: it exits with "no serving mode for
+family gnn" (``repro_torch.launch.train`` trains it).
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises where
 there is no card.
@@ -94,8 +95,8 @@ _CODEC_NAMES = {"auto": "auto", "bitpack": "bp-d1",
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for an arch the port does not have yet
-    (``configs.base.NOT_YET_PORTED``: the reference's GNN).  Every flag of
-    the reference's serve is ported."""
+    (``configs.base.NOT_YET_PORTED``, empty now that the GNN is ported).
+    Every flag of the reference's serve is ported."""
     arch = getattr(args, "arch", "paper-index")
     if arch in NOT_YET_PORTED:
         raise NotImplementedError(f"arch {arch!r} ({NOT_YET_PORTED[arch]}) "

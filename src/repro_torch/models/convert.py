@@ -17,7 +17,16 @@ or, for an MoE config, ``"moe": {"router": (L, d, E), "w_in", "w_gate":
 ``recsys_params_from_numpy(tree, cfg, device)`` does the same for a recsys
 model: the reference's tree of dicts and lists (``recsys.INIT``'s) becomes
 the port's tree of float32 tensors, checked leaf for leaf against the
-layout in ``recsys.SPECS``.
+layout in ``recsys.SPECS``.  ``gnn_params_from_numpy(tree, cfg, device)``
+does it for a GNN (``{"layers": [{"w_self", "w_neigh", "b"}, ...],
+"head"}``).
+
+``opt_state_from_numpy(state, params, device)`` carries the reference's
+AdamW state (``{"mu": tree, "nu": tree, "step": scalar}``, each moment
+tree shaped as the reference's params) across to the port's
+(``optim.adamw``: the moments as lists in the order of
+``tree.leaves(params)``), for an LM, a recsys model or a GNN: each moment
+tree is converted as that family's params are, and its leaves taken.
 
 Both read numpy only, so the port never imports the reference; whoever holds
 a reference model writes its arrays into the dict (``np.asarray`` of each
@@ -29,8 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import ops
-from repro_torch.models import recsys, transformer
+from repro_torch.models import gnn, recsys, transformer
 
 
 def _tensor(a, shape, device) -> torch.Tensor:
@@ -93,3 +103,81 @@ def recsys_params_from_numpy(tree, cfg: recsys.RecsysConfig, device=None):
         return [walk(v, n, f"{path}/{i}")
                 for i, (v, n) in enumerate(zip(spec, node))]
     return walk(recsys.SPECS[cfg.arch](cfg), tree, "")
+
+
+def gnn_params_from_numpy(tree, cfg: gnn.GNNConfig, device=None):
+    """The port's GNN params of ``cfg`` on ``device`` (None = the CUDA card)
+    holding the arrays of ``tree``; ValueError on another structure or a
+    leaf of another shape."""
+    device = ops.resolve_device(device)
+    if not isinstance(tree, dict) or sorted(tree) != ["head", "layers"] \
+            or len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"GNN params: want head and {cfg.n_layers} layers")
+    layers = []
+    d_in = cfg.d_feat
+    for lp in tree["layers"]:
+        if sorted(lp) != ["b", "w_neigh", "w_self"]:
+            raise ValueError(f"GNN layer keys {sorted(lp)}")
+        layers.append({
+            "w_self": _tensor(lp["w_self"], (d_in, cfg.d_hidden), device),
+            "w_neigh": _tensor(lp["w_neigh"], (d_in, cfg.d_hidden), device),
+            "b": _tensor(lp["b"], (cfg.d_hidden,), device)})
+        d_in = cfg.d_hidden
+    return {"layers": layers,
+            "head": _tensor(tree["head"], (d_in, cfg.n_classes), device)}
+
+
+def _np_leaves(node) -> list:
+    """A reference tree's arrays in ``jax.tree.leaves`` order."""
+    if isinstance(node, dict):
+        return [a for k in sorted(node) for a in _np_leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [a for v in node for a in _np_leaves(v)]
+    return [node]
+
+
+def _lm_leaf(tree, name: str):
+    """The reference array (one layer's slice of a stacked one) behind the
+    port LM's parameter ``name``."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tree[parts[0]]
+    i, rest = int(parts[1]), parts[2:]
+    ly = tree["layers"]
+    if rest[0] == "moe":
+        return np.asarray(ly["moe"][rest[1]])[i]
+    if rest[0] in ("ln1", "ln2"):
+        return np.asarray(ly[rest[0]])[i]
+    group = "attn" if rest[0] in ("wq", "wk", "wv", "wo") else "mlp"
+    return np.asarray(ly[group][rest[0]])[i]
+
+
+def opt_state_from_numpy(state, params, device=None):
+    """The port's AdamW state (``optim.adamw``) for ``params`` (a
+    ``transformer.LM``, a recsys or a GNN tree) from the reference's
+    ``{"mu", "nu", "step"}``; each moment keeps its dtype (float32, or bf16
+    from an ml_dtypes array).  ValueError where a moment's shape is not
+    its parameter's."""
+    device = ops.resolve_device(device)
+    named = tree_lib.items(params)
+    if isinstance(params, transformer.LM):
+        def arrays(m):
+            return [_lm_leaf(m, path[1:]) for path, _ in named]
+    else:
+        arrays = _np_leaves
+
+    def moments(m):
+        arrs = arrays(m)
+        if len(arrs) != len(named):
+            raise ValueError(f"{len(arrs)} moments for {len(named)} params")
+        out = []
+        for a, (path, p) in zip(arrs, named):
+            a = np.asarray(a)
+            dt = torch.bfloat16 if a.dtype.name == "bfloat16" \
+                else torch.float32
+            out.append(_tensor(a, p.shape, device).to(dt))
+        return out
+
+    return {"mu": moments(state["mu"]), "nu": moments(state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

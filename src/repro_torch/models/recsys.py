@@ -1,8 +1,8 @@
 """RecSys architectures: DIN, SASRec, BERT4Rec, MIND — scoring and
 retrieval.
 
-Port of ``src/repro/models/recsys.py`` (the serving half: ``INIT``,
-``SCORE`` and ``RETRIEVAL``; ``LOSS`` comes with the training slice).
+Port of ``src/repro/models/recsys.py``: ``INIT``, ``LOSS`` (the training
+objectives, each returning (loss, metrics)), ``SCORE`` and ``RETRIEVAL``.
 Parameters are the reference's trees, as dicts and lists of float32
 tensors, and every model is a plain function of (params, batch, cfg), as
 in the reference.  Each arch's tree is laid out once, in ``SPECS``: a
@@ -10,7 +10,11 @@ leaf is (kind, shape, scale), which ``INIT`` fills with seeded normal
 draws (or zeros) and ``convert.recsys_params_from_numpy`` checks a
 reference tree against.  Tables are padded to a multiple of 4096 rows
 (``_table``), positional embeddings are not.  Gathers are
-``index_select`` on the ids as given (int32 or int64).
+``segment.take`` on the ids as given (int32 or int64): its backward sums
+each table row's gradients by a deterministic segmented reduction, where
+``index_select``'s backward is atomics (measured on the H100: repeats
+unequal) and an indexed read's is a sorted scatter that sums a Zipf-hot
+row one term at a time.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +51,7 @@ class RecsysConfig:
 # embedding substrate
 # ---------------------------------------------------------------------------
 
-def take(table, ids):
-    """``jnp.take(table, ids, axis=0)``: rows of ``table`` for (...,) ids."""
-    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape,
-                                                          table.shape[1])
+take = segment.take
 
 
 def embedding_bag(table, ids, mask, mode: str = "mean"):
@@ -210,6 +212,15 @@ def din_score(params, batch, cfg: RecsysConfig):
     return _mlp(params["pred_mlp"], z)[..., 0]     # logits (B,)
 
 
+def din_loss(params, batch, cfg: RecsysConfig):
+    logits = din_score(params, batch, cfg)
+    labels = batch["labels"].float()
+    loss = torch.mean(
+        torch.clamp_min(logits, 0) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits))))
+    return loss, {"logit_mean": logits.mean()}
+
+
 def din_retrieval(params, batch, cfg: RecsysConfig):
     """1 user vs n_candidates: target attention per candidate."""
     e_t = _din_target(params, batch["cand_items"], batch["cand_cates"])
@@ -251,6 +262,31 @@ def bert4rec_hidden(params, hist, mask, cfg: RecsysConfig):
     x = take(params["item_table"], hist) + params["pos_embed"][None]
     x = x * mask[..., None]
     return _attn_blocks(params["blocks"], x, cfg.n_heads, causal=False)
+
+
+def sasrec_loss(params, batch, cfg: RecsysConfig):
+    """Per-position next-item with one sampled negative (paper's objective)."""
+    h = sasrec_hidden(params, batch["hist"], batch["hist_mask"], cfg)
+    s_pos = torch.sum(h * take(params["item_table"], batch["pos"]), -1)
+    s_neg = torch.sum(h * take(params["item_table"], batch["neg"]), -1)
+    m = batch["hist_mask"]
+    loss = -(torch.log(torch.sigmoid(s_pos) + 1e-9)
+             + torch.log(1 - torch.sigmoid(s_neg) + 1e-9)) * m
+    return loss.sum() / torch.clamp_min(m.sum(), 1.0), {}
+
+
+def bert4rec_loss(params, batch, cfg: RecsysConfig):
+    """Cloze objective over sampled candidates (1 true + n_neg) at masked
+    positions (sampled softmax, as the reference)."""
+    h = bert4rec_hidden(params, batch["hist"], batch["hist_mask"], cfg)
+    mpos = batch["mask_pos"].long()                # (B, M) positions
+    rows = torch.arange(h.shape[0], device=h.device)[:, None]
+    hm = h[rows, mpos]                             # (B, M, d)
+    e_c = take(params["item_table"], batch["cands"])            # (B,M,C,d)
+    logits = torch.einsum("bmd,bmcd->bmc", hm, e_c)
+    logp = torch.log_softmax(logits, -1)
+    m = batch["mask_valid"].float()                # (B, M)
+    return -(logp[..., 0] * m).sum() / torch.clamp_min(m.sum(), 1.0), {}
 
 
 def _seq_score(hidden):
@@ -301,6 +337,15 @@ def mind_interests(params, hist, mask, cfg: RecsysConfig):
     return caps
 
 
+def mind_loss(params, batch, cfg: RecsysConfig):
+    """Sampled softmax with label-aware max-interest scoring."""
+    caps = mind_interests(params, batch["hist"], batch["hist_mask"], cfg)
+    e_c = take(params["item_table"], batch["cands"])          # (B,C,d)
+    scores = torch.einsum("bkd,bcd->bkc", caps, e_c).amax(dim=1)
+    logp = torch.log_softmax(scores, -1)
+    return -logp[:, 0].mean(), {}
+
+
 def mind_score(params, batch, cfg: RecsysConfig):
     caps = mind_interests(params, batch["hist"], batch["hist_mask"], cfg)
     e_t = take(params["item_table"], batch["target_item"])
@@ -318,6 +363,8 @@ def mind_retrieval(params, batch, cfg: RecsysConfig):
 # dispatch
 # ---------------------------------------------------------------------------
 
+LOSS = {"din": din_loss, "sasrec": sasrec_loss, "bert4rec": bert4rec_loss,
+        "mind": mind_loss}
 SCORE = {"din": din_score, "sasrec": sasrec_score, "bert4rec": bert4rec_score,
          "mind": mind_score}
 RETRIEVAL = {"din": din_retrieval, "sasrec": sasrec_retrieval,

@@ -13,21 +13,36 @@ router and the stacked expert weights) in place of the dense MLP and runs
 ``moe.moe_ffn`` after attention, in prefill and in decode alike.
 ``decode_step`` writes the new K/V into the cache in place at ``pos``
 (the reference's ``dynamic_update_slice``) and returns the same cache.
-The training entry points (``forward``, ``lm_hidden``, ``lm_loss``) come
-with a later slice.
+
+Training: ``forward``, ``lm_hidden`` and ``lm_loss`` (the MoE aux term
+that ``moe.moe_ffn`` returns, weighted by ``aux_weight``).  ``remat`` is
+the reference's ``jax.checkpoint`` policy, per layer:
+- ``"full"``: ``torch.utils.checkpoint`` saves only the layer's input and
+  recomputes the rest in the backward pass (``nothing_saveable``);
+- ``"dots"``: selective checkpointing keeps the outputs of the weight
+  products (``aten.mm``: the projections, the MLP and the router) and
+  recomputes everything else, the batched attention-score products
+  (``aten.bmm``) among them (``checkpoint_dots_with_no_batch_dims``).
+The head loss is recomputed in the backward pass as ``jax.checkpoint(
+head_loss)`` is, so no (B, S, V) logits are kept.  Remat changes what is
+kept, never a number: the recomputation runs the same ops on the same
+inputs.  The picked logit is an indexed read, whose backward on a card is
+a sorted scatter, bit-equal from run to run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +147,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         e = lambda *s: _empty(*s, dtype=_dtype(cfg.param_dtype), device=device)
         self.embed = e(cfg.vocab, cfg.d_model)
         self.final_norm = e(cfg.d_model)
@@ -183,9 +199,10 @@ def init_params(generator: torch.Generator, cfg: LMConfig, device=None) -> LM:
 def embed_tokens(params: LM, tokens, cfg: LMConfig):
     """tokens (B, S) → (B, S, d_model) in the compute dtype.  gemma's
     ``embed_scale`` multiplies in float32 and rounds once, as JAX promotes
-    the reference's bf16 × numpy-scalar product."""
+    the reference's bf16 × numpy-scalar product.  The rows are read by
+    ``segment.take``, whose backward is deterministic."""
     cdt = _dtype(cfg.compute_dtype)
-    x = params.embed[tokens.long()].to(cdt)
+    x = segment.take(params.embed, tokens).to(cdt)
     if cfg.embed_scale:
         x = (x.float() * float(np.float32(np.sqrt(cfg.d_model)))).to(cdt)
     return x
@@ -210,17 +227,25 @@ def layer_qkv(lp: DecoderLayer, x, cos, sin, cfg: LMConfig):
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
-def layer_out(lp: DecoderLayer, x, attn, cfg: LMConfig):
+def layer_rest(lp: DecoderLayer, x, attn, cfg: LMConfig):
     """The rest of one layer: output projection, residual, RMSNorm, the GLU
-    MLP or the MoE layer, residual."""
+    MLP or the MoE layer, residual.  Returns (x, aux): the MoE layer's
+    load-balancing term, 0 for a dense layer."""
     B, S = x.shape[:2]
     x = x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ lp.wo.to(x.dtype)
     h = L.rms_norm(x, lp.ln2.float())
     if cfg.is_moe:
-        out, _ = moe.moe_ffn(lp.moe, h, top_k=cfg.top_k,
-                             capacity_factor=cfg.capacity_factor, act=cfg.act)
-        return x + out
-    return x + L.glu_mlp(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act)
+        out, aux = moe.moe_ffn(lp.moe, h, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               act=cfg.act)
+        return x + out, aux
+    return x + L.glu_mlp(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act), \
+        torch.zeros((), device=x.device)
+
+
+def layer_out(lp: DecoderLayer, x, attn, cfg: LMConfig):
+    """``layer_rest`` without the aux term (serving)."""
+    return layer_rest(lp, x, attn, cfg)[0]
 
 
 def _logits(params: LM, x, cfg: LMConfig):
@@ -229,6 +254,88 @@ def _logits(params: LM, x, cfg: LMConfig):
     x = L.rms_norm(x, params.final_norm.float())
     head = params.head.to(_dtype(cfg.compute_dtype))
     return x.float() @ head.float().T
+
+
+# ---------------------------------------------------------------------------
+# training: forward, lm_hidden, lm_loss
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(lp: DecoderLayer, x, cos, sin, cfg: LMConfig):
+    """One decoder layer on (B, S, D) as the reference's training forward
+    runs it.  Returns (x, aux)."""
+    q, k, v = layer_qkv(lp, x, cos, sin, cfg)
+    if x.shape[1] > cfg.full_attn_max_seq:
+        attn = L.attention_chunked(q, k, v, chunk=cfg.attn_chunk)
+    else:
+        attn = L.attention_full(q, k, v,
+                                scores_dtype=_dtype(cfg.attn_scores_dtype))
+    return layer_rest(lp, x, attn, cfg)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """'dots': keep the (unbatched) weight products, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _save_weight_products))
+    raise ValueError(f"remat {mode!r}")
+
+
+def forward(params: LM, tokens, cfg: LMConfig, return_hidden: bool = False):
+    """tokens: (B, S) → logits (B, S, V) in float32 (a float32-accumulated
+    product of compute-dtype operands), and the summed aux term; with
+    ``return_hidden`` the final-normed hidden state in place of logits."""
+    x = embed_tokens(params, tokens, cfg)
+    B, S, _ = x.shape
+    cos, sin = rope_tables(torch.arange(S, device=x.device), B, cfg)
+    body = _remat(functools.partial(_layer_fwd, cfg=cfg), cfg.remat)
+    aux = torch.zeros((), device=x.device)
+    for lp in params.layers:
+        x, a = body(lp, x, cos, sin)
+        aux = aux + a
+    x = L.rms_norm(x, params.final_norm.float())
+    if return_hidden:
+        return x, aux
+    head = params.head.to(_dtype(cfg.compute_dtype))
+    return x.float() @ head.float().T, aux
+
+
+def lm_hidden(params: LM, tokens, cfg: LMConfig):
+    """forward() without the vocab projection; returns (x_final, aux)."""
+    return forward(params, tokens, cfg, return_hidden=True)
+
+
+def _head_loss(x, head, labels):
+    """Mean NLL over labels ≥ 0: compute-dtype logits, a float32
+    logsumexp, the picked logit by an indexed read."""
+    logits = x @ head.to(x.dtype).T                          # (B, S, V)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    B, S = labels.shape
+    picked = logits[torch.arange(B, device=x.device)[:, None],
+                    torch.arange(S, device=x.device)[None, :],
+                    torch.clamp_min(labels.long(), 0)]
+    nll = lse - picked.float()
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_loss(params: LM, batch, cfg: LMConfig, aux_weight: float = 0.01):
+    x, aux = lm_hidden(params, batch["tokens"], cfg)
+    loss = ckpt.checkpoint(_head_loss, x, params.head, batch["labels"],
+                           use_reentrant=False)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

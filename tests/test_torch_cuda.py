@@ -1330,3 +1330,93 @@ def test_recsys_steps_on_the_card_match_the_cpu(cuda, arch):
     gv, gi = retrieve(on_card, to(r, cuda))
     wv, wi = retrieve(params, r)
     _top_k_agree(gv.cpu(), gi.cpu(), wv, wi)
+
+
+def _gnn_trainer(cuda, variant, ckpt_dir, total, skip):
+    """A Trainer of the smoke GNN on a 3000-node graph on the card: the
+    whole graph a step ("full"), or 256 seeds a step at fanout (10, 5)
+    drawn by the card's generator ("minibatch"); fresh seeded state, the
+    data skipping ``skip`` batches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import graph_data
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("graphsage-reddit").smoke_config()
+    g = graph_data.synthetic_graph(3000, 12, seed=2, d_feat=cfg.d_feat,
+                                   n_classes=cfg.n_classes)
+    dev = {k: torch.from_numpy(v).to(cuda) for k, v in g.items()}
+    rng = np.random.default_rng(3)
+
+    def batches():
+        while True:
+            if variant == "full":
+                yield {k: dev[k] for k in ("x", "edge_src", "edge_dst",
+                                           "labels", "train_mask")}
+            else:
+                s = torch.from_numpy(rng.integers(0, 3000, 256)).to(cuda)
+                yield {"feats": dev["x"], "indptr": dev["indptr"],
+                       "indices": dev["indices"], "seeds": s,
+                       "labels": dev["labels"][s]}
+    it = batches()
+    for _ in range(skip):
+        next(it)
+    opt = adamw.AdamWConfig(lr=1e-2, weight_decay=0.0)
+    params = gnn.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                             cuda)
+    return Trainer(steps.make_gnn_train_step(cfg, variant, opt,
+                                             fanout=(10, 5)),
+                   params, adamw.init(params, opt), it,
+                   TrainerConfig(total_steps=total, ckpt_every=3,
+                                 ckpt_dir=str(ckpt_dir)),
+                   generator=torch.Generator(cuda).manual_seed(4))
+
+
+@pytest.mark.parametrize("variant", ["full", "minibatch"])
+def test_gnn_resume_is_bitwise_on_the_card(cuda, variant, tmp_path):
+    """6 steps against 3 + checkpoint + restore into a fresh Trainer + 3:
+    params, moments and the generator's state torch.equal (the segment
+    sums and gathers of the step are bit-stable on the card)."""
+    from repro_torch import tree
+    a = _gnn_trainer(cuda, variant, tmp_path / "a", 6, 0)
+    a.run()
+    b = _gnn_trainer(cuda, variant, tmp_path / "b", 3, 0)
+    b.run()
+    b.mgr.wait()
+    c = _gnn_trainer(cuda, variant, tmp_path / "b", 6, 3)
+    assert c.try_restore() == 3
+    c.run(3)
+    want = tree.leaves({"p": a.params, "o": a.opt_state,
+                        "g": a.generator.get_state()})
+    got = tree.leaves({"p": c.params, "o": c.opt_state,
+                       "g": c.generator.get_state()})
+    assert len(got) == len(want)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_compressed_csr_and_decode_wire_through_k1(cuda):
+    """CompressedCSR.decompress and grad_compress.decode_wire on the card
+    launch K1 and equal the host decode exactly."""
+    from repro_torch.data import graph_data
+    from repro_torch.distributed import grad_compress
+    g = graph_data.synthetic_graph(20000, 6, seed=1)
+    csr = graph_data.CompressedCSR.compress(g["indptr"], g["indices"], 20000)
+    n0 = ops.launches()["unpack_blocks"]
+    got = csr.to(cuda).decompress()
+    assert ops.launches()["unpack_blocks"] > n0
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), csr.decompress())
+    assert np.array_equal(got.cpu().numpy(), g["indices"])
+    grad = torch.randn(1 << 18, generator=torch.Generator().manual_seed(2))
+    idx, vals, _ = grad_compress.sparsify(grad.to(cuda),
+                                          torch.zeros(1 << 18, device=cuda),
+                                          4096)
+    packed, vals16 = grad_compress.encode_wire(idx, vals)
+    n1 = ops.launches()["unpack_blocks"]
+    d_idx, d_vals = grad_compress.decode_wire(packed.to(cuda),
+                                              vals16.to(cuda))
+    assert ops.launches()["unpack_blocks"] > n1
+    h_idx, h_vals = grad_compress.decode_wire(packed, vals16)
+    assert torch.equal(d_idx.cpu(), h_idx) and torch.equal(h_idx, idx.cpu())
+    assert torch.equal(d_vals.cpu(), h_vals)

@@ -171,8 +171,8 @@ def test_serve_runs_on_cpu_and_refuses_later_slices(capsys, tmp_path):
     mutable slice, once refused, served the same way: their hits equal
     the sequential serve's where the corpus is the same (--qps), and the
     mutable runs end on their differential (and recovery) lines; an
-    injected WAL crash is recovered from.  Archs not yet ported are still
-    refused."""
+    injected WAL crash is recovered from.  The GNN, now ported, is refused
+    as the reference's serve refuses it: it has no serving mode."""
     base = ["--queries", "4", "--device", "cpu", "--cache", "--shared-vocab"]
     rep = t_serve.main(base)
     assert len(rep["results"]) == 4
@@ -186,5 +186,5 @@ def test_serve_runs_on_cpu_and_refuses_later_slices(capsys, tmp_path):
         assert "byte-identical to rebuild-from-scratch" in out
         assert ("--wal" not in flags) or "[serve] recovery check:" in out
         assert ("--chaos" not in flags) or "recovering from" in out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(SystemExit, match="no serving mode for family gnn"):
         t_serve.main(["--arch", "graphsage-reddit", "--device", "cpu"])

@@ -69,7 +69,7 @@ pytestmark = pytest.mark.torch_port
 LM_ARCHS = ["gemma-7b", "phi3-medium-14b", "internlm2-1.8b",
             "granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 RECSYS_ARCHS = ["din", "sasrec", "bert4rec", "mind"]
-NOT_PORTED = ["graphsage-reddit"]
+GNN_ARCHS = ["graphsage-reddit"]
 N_NEW = 4
 F32_TOL = 1e-4
 BF16_LOGIT_TOL = 0.03
@@ -384,17 +384,21 @@ def test_full_config_matches_reference(arch):
 
 def test_registry_lists_the_ported_archs():
     assert tbase.all_arch_ids() == sorted(LM_ARCHS + RECSYS_ARCHS
-                                          + ["paper-index"])
+                                          + GNN_ARCHS + ["paper-index"])
     with pytest.raises(KeyError):
         tbase.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_archs_raise(arch):
-    ref_get_config(arch)                 # the reference has it
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.get_config(arch)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+def test_gnn_archs_registered_as_the_reference_s(arch):
+    """Once refused as not yet ported: now registered as the reference
+    registers it, and serve refuses it as the reference's does (the GNN
+    has no serving mode; tests/test_torch_gnn.py trains it)."""
+    ref, port = ref_get_config(arch), tbase.get_config(arch)
+    assert dataclasses.asdict(port.config) == dataclasses.asdict(ref.config)
+    assert (port.family, port.shapes) == (ref.family, ref.shapes) == \
+        ("gnn", ref.shapes)
+    with pytest.raises(SystemExit, match="no serving mode for family gnn"):
         tserve.main(["--arch", arch, "--device", "cpu"])
 
 
