@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card (sm_90, an H100).
 
-    python3 chip_smoke.py [--save-operands DIR]
+    python3 chip_smoke.py [--save-operands DIR] [--seed N]
 
 Phases, each fatal on failure, each timed:
   1. the card's name and power limit; build the hand kernels from
@@ -167,7 +167,23 @@ Phases, each fatal on failure, each timed:
      one step on 2**11 rows held against the CPU path.  Phase 1 also runs
      ``python -m repro_torch.launch.train --arch <id> --steps 20
      --ckpt-every 10`` for graphsage-reddit, internlm2-1.8b and din
-     (``train_launcher_cli``).
+     (``train_launcher_cli``);
+  9. in a process group of its own (``run_mesh_phase``: one NCCL rank a
+     visible card, world = the card count, a (data, model) = (1, world)
+     mesh on the cards and the same mesh on the CPU over gloo), the
+     multi-card layer: one MoE layer of granite-moe-1b-a400m (d 1024,
+     d_ff 512, 32 experts, top-8, float32 weights) and of kimi-k2-1t-a32b
+     (d 7168, d_ff 2048, 384 experts, top-8, bf16 weights, 33.8e9 bytes)
+     on 4 x 1024 bf16 tokens from ``--seed`` through
+     ``moe.moe_ffn_sharded`` (``mesh_moe``): against ``moe_ffn_local`` on
+     the card at a factor where nothing drops (within LM_DECODE_TOL, no
+     slot dropped), against the same function on the CPU mesh in float32
+     at the config's factor 1.25 (the same drops; tokens routed apart at
+     a near tie left out and counted), two runs bit-equal, ms a layer of
+     both paths, the all-to-alls' bytes and device ms from the profiler
+     (with one card they are copies within it); then granite's whole
+     tree placed by ``lm_param_spec`` (tp), saved and restored through
+     ``restore(shardings=)``, torch.equal (``mesh_restore``).
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
@@ -187,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -3170,6 +3187,359 @@ def train_launcher_cli() -> None:
         shutil.rmtree(top, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 9: the multi-card layer (expert-parallel MoE over a DeviceMesh)
+# --------------------------------------------------------------------------
+
+MESH_ARCHS = (MOE_ARCH, KIMI_ARCH)
+MESH_REPS = 5                  # timed calls of each path, after a warm one
+MESH_TIMEOUT = 600             # seconds for the phase's process group
+MESH_RESULT = ROOT / "build" / "phase9.json"
+MESH_CKPT = ROOT / "build" / "phase9-ckpt"
+
+
+def _rank0_log(msg: str) -> None:
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        log(msg)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_phase(seed: int) -> dict:
+    """Phase 9 in a process group of its own, one NCCL rank a visible card
+    (``mesh_child``), after this process has given back its cached
+    memory; fails if a rank does or the group outlives MESH_TIMEOUT.
+    Returns rank 0's record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    MESH_RESULT.parent.mkdir(exist_ok=True)
+    MESH_RESULT.unlink(missing_ok=True)
+    world = torch.cuda.device_count()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.mesh_child("
+                               f"{r}, {world}, {port}, {seed})"], cwd=ROOT)
+        for r in range(world)]
+    try:
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(f"phase 9: ranks exited with {bad}")
+    return json.loads(MESH_RESULT.read_text())
+
+
+def mesh_child(rank: int, world: int, port: int, seed: int) -> None:
+    """Phase 9's rank ``rank`` of ``world``: a (1, world) mesh on the cards
+    (NCCL) and the same mesh on the CPU (gloo), ``mesh_moe`` for each of
+    MESH_ARCHS and ``mesh_restore``; rank 0 writes MESH_RESULT."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device("cuda", rank)
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
+        rank=rank, world_size=world, device_id=dev,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        t0 = time.perf_counter()
+        card = make_local_mesh(1, world)
+        cpu = make_local_mesh(1, world, device_type="cpu")
+        _rank0_log(f"phase 9: {world} NCCL rank(s), meshes (data, model) = "
+                   f"(1, {world}) on the cards and on the CPU (gloo)")
+        rec = {"world": world}
+        for arch in MESH_ARCHS:
+            rec[arch] = mesh_moe(arch, card, cpu, seed, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["restore"] = mesh_restore(card, seed, dev)
+        rec["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            MESH_RESULT.write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def no_drop_factor(ids: torch.Tensor, n_experts: int, M: int) -> float:
+    """A capacity factor at which neither stage of ``moe_ffn_sharded`` nor
+    ``moe_ffn_local`` drops a slot, for expert ids (B, S, k) of x placed
+    P('data', 'model', None) over a (1, M) mesh: every rank's send load to
+    every rank fits ``cap`` and every expert's load fits ``cap2``."""
+    B, S, k = ids.shape
+    e_loc = n_experts // M
+    per_rank = ids.reshape(B, M, S // M, k).transpose(0, 1).reshape(M, -1)
+    sends = max(int(torch.bincount(r // e_loc, minlength=M).max())
+                for r in per_rank)
+    expert = int(torch.bincount(ids.reshape(-1), minlength=n_experts).max())
+    cap = max(sends, -(-expert * e_loc // M))
+    return cap * M / per_rank.shape[1]
+
+
+def nccl_profile(run) -> tuple[float, float, list]:
+    """``run()`` under torch.profiler: the device ms inside NCCL's ranges
+    (its kernels, or the copies it makes for a rank's own block), the
+    device ms of every device-to-device copy in the run (those copies
+    among them), and the events' names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = [e for e in ev if "nccl" in e.key.lower()]
+    copies = [e for e in ev if "dtod" in e.key.lower()]
+    return (sum(e.self_device_time_total for e in nccl) / 1e3,
+            sum(e.self_device_time_total for e in copies) / 1e3,
+            sorted({f"{e.key[:60]} x{e.count}" for e in nccl + copies}))
+
+
+@torch.no_grad()
+def mesh_moe(arch: str, card, cpu, seed: int, dev) -> dict:
+    """One MoE layer of ``arch`` at its registered widths on 4 × 1024
+    tokens drawn from ``seed``: ``moe_ffn_sharded`` on the card mesh (a)
+    against ``moe_ffn_local`` at a factor where nothing drops, (b) at the
+    config's factor against the same function on the CPU mesh in float32
+    (tokens routed apart at a near tie, and the slots their routing moved
+    across a capacity, left out and counted), (c) two runs bit-equal;
+    ms per layer of both paths and the all-to-alls' device ms and bytes."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+    cfg = get_config(arch).config
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    M = sharding.axis_sizes(card)["model"]
+    x_spec = sharding._spec((sharding.batch_axes(card), "model", None))
+    e_spec = ("model", None, None)
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    whole = moe.init_moe_params(
+        gen, d, cfg.d_ff, E, device=dev,
+        dtype={"float32": torch.float32,
+               "bfloat16": torch.bfloat16}[cfg.param_dtype])
+    x = torch.randn((LM_BATCH, LM_PROMPT, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    placed = types.SimpleNamespace(**{
+        n: sharding.distribute(getattr(whole, n), sharding.Sharding(
+            card, () if n == "router" else e_spec))
+        for n in ("router", "w_in", "w_gate", "w_out")})
+    x_dt = sharding.distribute(x, sharding.Sharding(card, x_spec))
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in whole.parameters())
+    _rank0_log(f"phase 9 {arch}: one MoE layer, d {d}, d_ff {cfg.d_ff}, "
+               f"{E} experts ({E // M} a card), top-{k}, {cfg.param_dtype} "
+               f"weights ({weight_bytes} bytes), bf16 x of {LM_BATCH} x "
+               f"{LM_PROMPT} tokens from seed {seed}, made in "
+               f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(top_k=k, act=cfg.act, mesh=card)
+    group = sharding.mesh_group(card)
+
+    def total(*ts) -> list:
+        v = torch.stack([torch.as_tensor(t, device=dev) for t in ts])
+        dist.all_reduce(v, group=group)
+        return [int(a) for a in v.tolist()]
+
+    # (a) against the local path where nothing drops
+    ids = moe._route(whole.router, x.reshape(-1, d), k, E)[1]
+    nd = no_drop_factor(ids.reshape(LM_BATCH, LM_PROMPT, k), E, M)
+    st = {}
+    out_nd, _ = moe.moe_ffn_sharded(placed, x_dt, capacity_factor=nd,
+                                    stats=st, **kw)
+    local_nd, _ = moe.moe_ffn_local(whole, x, top_k=k, capacity_factor=nd,
+                                    act=cfg.act)
+    C = moe.capacity(ids.shape[0], k, E, nd)
+    local_drop = int((torch.bincount(ids.reshape(-1), minlength=E) - C)
+                     .clamp_min(0).sum())
+    drops = total(st["send_dropped"], st["expert_dropped"])
+    mine = sharding.block(local_nd, card, x_spec)
+    err_nd = rel_rms(out_nd.to_local(), mine)
+    _rank0_log(f"phase 9 {arch} (a) capacity factor {nd:.4f} (nothing "
+               f"dropped: send {drops[0]}, expert {drops[1]}, local "
+               f"{local_drop}): sharded against moe_ffn_local on the card, "
+               f"RMS difference {err_nd:.6f} of the output's RMS "
+               f"(tolerance {LM_DECODE_TOL}), max abs "
+               f"{max_float_err(out_nd.to_local(), mine)}")
+    if drops != [0, 0] or local_drop or not err_nd <= LM_DECODE_TOL:
+        raise AssertionError(f"phase 9 {arch}: sharded against local at "
+                             f"factor {nd}: drops {drops}, local "
+                             f"{local_drop}, error {err_nd}")
+    del out_nd, local_nd, mine, st
+
+    # (c) two runs at the config's factor, bit-equal; their times
+    cf = cfg.capacity_factor
+    st = {}
+    out, aux = moe.moe_ffn_sharded(placed, x_dt, capacity_factor=cf,
+                                   stats=st, **kw)
+    again, _ = moe.moe_ffn_sharded(placed, x_dt, capacity_factor=cf, **kw)
+    if not torch.equal(out.to_local(), again.to_local()):
+        raise AssertionError(f"phase 9 {arch}: two sharded runs differ")
+    del again
+    sharded_ms = 1e3 * timed_step(lambda: moe.moe_ffn_sharded(
+        placed, x_dt, capacity_factor=cf, **kw), MESH_REPS)
+    local_ms = 1e3 * timed_step(lambda: moe.moe_ffn_local(
+        whole, x, top_k=k, capacity_factor=cf, act=cfg.act), MESH_REPS)
+    a2a_ms, copy_ms, a2a_kernels = nccl_profile(
+        lambda: moe.moe_ffn_sharded(placed, x_dt, capacity_factor=cf, **kw))
+    for what, run in (("sharded", lambda: moe.moe_ffn_sharded(
+            placed, x_dt, capacity_factor=cf, **kw)),
+            ("local", lambda: moe.moe_ffn_local(
+                whole, x, top_k=k, capacity_factor=cf, act=cfg.act))):
+        if dist.get_rank() == 0:
+            profile_report(f"phase 9 {arch} {what}", run,
+                           f"{x.shape[0] * x.shape[1]} tokens")
+        else:
+            run()
+    n_loc = x_dt.to_local().shape[0] * x_dt.to_local().shape[1]
+    cap = max(int(np.ceil(n_loc * k / M * cf)), 1)
+    a2a_bytes = M * cap * (2 * d * x.element_size() + 4)
+    sent = total(st["send_dropped"], st["expert_dropped"])
+    _rank0_log(f"phase 9 {arch} (c) capacity factor {cf}: two sharded runs "
+               f"bit-equal; {sharded_ms:.3f} ms a layer sharded, "
+               f"{local_ms:.3f} ms local (host clock over {MESH_REPS} "
+               f"calls after a warm one); dropped slots send {sent[0]}, "
+               f"expert {sent[1]} of {x.shape[0] * x.shape[1] * k}")
+    _rank0_log(f"phase 9 {arch} all-to-alls: {a2a_bytes} bytes a rank a "
+               f"layer (tokens out, results back, expert ids), device "
+               f"{a2a_ms:.3f} ms inside NCCL's ranges under the profiler "
+               f"(device-to-device copies of the whole layer: {copy_ms:.3f} "
+               f"ms): {a2a_kernels}; " + (
+                   "one card: the exchange was a copy within the card, no "
+                   "bytes crossed between cards" if M == 1 else
+                   f"{(M - 1) / M:.3f} of them cross to the other {M - 1} "
+                   f"card(s)"))
+
+    # (b) the same function on the CPU mesh, in float32
+    t1 = time.perf_counter()
+    xb = sharding.block(x, card, x_spec).float().cpu()
+    w = [sharding.block(getattr(whole, n), card, e_spec).cpu()
+         for n in ("w_in", "w_gate", "w_out")]
+    cst = {}
+    out_cpu, aux_cpu = moe.moe_ffn_sharded_local(
+        whole.router.cpu(), *w, xb, top_k=k, capacity_factor=cf,
+        act=cfg.act, model_group=cpu.get_group("model"),
+        mesh_group=sharding.mesh_group(cpu), stats=cst)
+    del w
+    flat = xb.reshape(-1, d)
+    card_ids = moe._route(placed.router.to_local(), flat.to(dev), k,
+                          E)[1].sort(1).values.cpu()
+    _, cpu_ids, probs = moe._route(whole.router.cpu(), flat, k, E)
+    top = probs.sort(-1, descending=True).values
+    tie = (top[:, k - 1] - top[:, k]) < NEAR_TIE
+    apart = (card_ids != cpu_ids.sort(1).values).any(1)
+    if bool((apart & ~tie).any()):
+        raise AssertionError(f"phase 9 {arch}: {int((apart & ~tie).sum())} "
+                             f"tokens routed apart on the card and the CPU "
+                             f"at no near tie")
+    shifted = (st["kept"].cpu() != cst["kept"]).any(1) & ~apart
+    n_apart, n_shifted, n_tie = total(apart.sum(), shifted.sum(), tie.sum())
+    cpu_drops = total(cst["send_dropped"], cst["expert_dropped"])
+    moved = 4 * k * n_apart       # a slot moved shifts <= 2 groups x 2 stages
+    if n_shifted > moved or sum(abs(a - b) for a, b in
+                                zip(sent, cpu_drops)) > moved:
+        raise AssertionError(f"phase 9 {arch}: card drops {sent}, CPU "
+                             f"{cpu_drops}, {n_shifted} tokens kept apart, "
+                             f"{n_apart} routed apart")
+    keep = ~(apart | shifted)
+    got = out.to_local().reshape(-1, d).cpu()[keep]
+    err = rel_rms(got, out_cpu.reshape(-1, d)[keep])
+    aux_err = abs(float(aux.to_local()) - float(aux_cpu))
+    _rank0_log(f"phase 9 {arch} (b) against the CPU (gloo, float32) at "
+               f"factor {cf}: drops card {sent}, CPU {cpu_drops}; "
+               f"{n_apart} tokens routed apart at a near tie ({n_tie} with "
+               f"a CPU margin under {NEAR_TIE}) and {n_shifted} whose kept "
+               f"slots moved with them, left out; RMS difference {err:.6f} "
+               f"of the output's RMS (tolerance {LM_DECODE_TOL}), max abs "
+               f"{max_float_err(got, out_cpu.reshape(-1, d)[keep])}; aux "
+               f"{float(aux.to_local())} against {float(aux_cpu)} "
+               f"({time.perf_counter() - t1:.1f} s on the CPU)")
+    if not err <= LM_DECODE_TOL or not aux_err <= 1e-3 * abs(float(aux_cpu)):
+        raise AssertionError(f"phase 9 {arch}: card against CPU: error "
+                             f"{err}, aux {aux_err}")
+    return {"no_drop_factor": nd, "no_drop_err": err_nd,
+            "sharded_ms": sharded_ms, "local_ms": local_ms,
+            "a2a_device_ms": a2a_ms, "dtod_copy_ms": copy_ms,
+            "a2a_kernels": a2a_kernels,
+            "a2a_bytes": a2a_bytes, "drops": sent, "cpu_drops": cpu_drops,
+            "apart": n_apart, "shifted": n_shifted, "cpu_err": err,
+            "aux": float(aux.to_local()), "aux_cpu": float(aux_cpu)}
+
+
+def mesh_restore(card, seed: int, dev) -> dict:
+    """granite-moe-1b-a400m's whole parameter tree placed on the card mesh
+    by ``lm_param_spec`` (preset tp), saved, and restored through
+    ``restore(shardings=)`` into a fresh module: every leaf a DTensor with
+    the saved placements and torch.equal local blocks."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(MOE_ARCH).config
+    params = tfm.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                             dev)
+    rule = sharding.lm_param_spec
+    sharding.distribute_tree(params, sharding.tree_param_shardings(
+        params, card, rule))
+    group = sharding.mesh_group(card)
+    if dist.get_rank() == 0:
+        shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    dist.barrier(group=group)
+    try:
+        mgr = CheckpointManager(str(MESH_CKPT))
+        t0 = time.perf_counter()
+        mgr.save(1, params)
+        t1 = time.perf_counter()
+        template = tfm.LM(cfg, "meta")
+        got, step = mgr.restore(template, shardings=sharding.
+                                tree_param_shardings(template, card, rule))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        leaves = sharded = 0
+        for (name, a), (_, b) in zip(params.named_parameters(),
+                                     got.named_parameters()):
+            if not (sharding.is_dtensor(b) and b.placements == a.placements
+                    and torch.equal(a.to_local(), b.to_local())):
+                raise AssertionError(f"phase 9 restore: {name} differs")
+            leaves += 1
+            sharded += any(p.is_shard() for p in b.placements)
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        if step != 1 or leaves != len(list(template.parameters())):
+            raise AssertionError(f"phase 9 restore: step {step}, {leaves} "
+                                 f"leaves")
+        _rank0_log(f"phase 9 restore: {MOE_ARCH}'s {leaves} leaves "
+                   f"({n_bytes} bytes, {sharded} sharded by lm_param_spec "
+                   f"tp) saved in {t1 - t0:.1f} s and restored onto the "
+                   f"mesh in {t2 - t1:.1f} s: every leaf a DTensor with its "
+                   f"placements and torch.equal local blocks")
+        return {"leaves": leaves, "sharded": sharded, "bytes": n_bytes,
+                "save_s": t1 - t0, "restore_s": t2 - t1}
+    finally:
+        dist.barrier(group=group)
+        if dist.get_rank() == 0:
+            shutil.rmtree(MESH_CKPT, ignore_errors=True)
+
+
 def phase_done(k: int, t0: float) -> float:
     now = time.perf_counter()
     log(f"phase {k} done in {now - t0:.1f} s")
@@ -3280,7 +3650,10 @@ def main(argv=None) -> int:
     p.add_argument("--save-operands", metavar="DIR", default=None,
                    help="also write the operands phase 4 times the kernels "
                         "on to DIR/operands.pt")
-    save_dir = p.parse_args(argv).save_operands
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of phase 9's MoE layers and their input")
+    args = p.parse_args(argv)
+    save_dir = args.save_operands
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
               file=sys.stderr)
@@ -3431,7 +3804,9 @@ def main(argv=None) -> int:
     k1["launches"] += train["k1_launches"]
     log(f"phase 8: K1 launched {train['k1_launches']} times in the data "
         f"path (added to K1's main-path launches, now {k1['launches']})")
-    phase_done(8, t_phase)
+    t_phase = phase_done(8, t_phase)
+    run_mesh_phase(args.seed)
+    phase_done(9, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

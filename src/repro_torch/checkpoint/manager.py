@@ -15,6 +15,14 @@ its manifest dtype "bfloat16".  ``restore`` reads every leaf of a
 checkpoint before it returns any, and puts each on its template leaf's
 device and dtype (an ``nn.Module`` in the template takes the values into
 its parameters in place).
+
+Elastic, as the reference's: the files hold whole arrays, whatever mesh
+wrote them.  A tree with DTensor leaves is saved by every rank of their
+mesh: each leaf is gathered whole (``full_tensor``, a collective), the
+mesh's first rank alone writes, and the others wait at a barrier (or,
+for ``save_async``, return once the snapshot is taken).  ``restore(...,
+shardings=)`` lays each leaf out anew as a DTensor on the target mesh,
+so a 2×4 checkpoint restores onto 4×2 or 1×8.
 """
 
 from __future__ import annotations
@@ -28,10 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.distributed import sharding
 
 
 def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     t = t.detach()
+    if sharding.is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().copy(), "bfloat16"
     a = t.cpu().numpy().copy()
@@ -52,11 +63,23 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree) -> str:
-        return self._write(step, _snapshot(tree))
+        host = _snapshot(tree)
+        mesh = _mesh_of(tree)
+        if mesh is None:
+            return self._write(step, host)
+        import torch.distributed as dist
+        final = os.path.join(self.dir, f"ckpt_{step:08d}")
+        if _writes(mesh):
+            self._write(step, host)
+        dist.barrier(group=sharding.mesh_group(mesh))
+        return final
 
     def save_async(self, step: int, tree) -> None:
         self.wait()
         host = _snapshot(tree)                      # snapshot before thread
+        mesh = _mesh_of(tree)
+        if mesh is not None and not _writes(mesh):
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host), daemon=True)
         self._thread.start()
@@ -107,21 +130,26 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None):
-        """template: a tree with the target structure.  Returns (tree,
-        step): the newest checkpoint that reads whole (or ``step``)."""
+    def restore(self, template, step: int | None = None, shardings=None):
+        """template: a tree with the target structure.  shardings: a tree
+        matching it of ``sharding.Sharding``s (each a mesh and the spec
+        its placements are read off), or None.  Returns (tree, step): the
+        newest checkpoint that reads whole (or ``step``); with
+        ``shardings`` each leaf is a DTensor laid out on its mesh, in the
+        template leaf's dtype (an ``nn.Module`` in the template gets them
+        as its parameters)."""
         steps = self.all_steps()
         candidates = list(reversed(steps)) if step is None else [step]
         last_err: Exception | None = None
         for s in candidates:
             try:
-                return self._read(template, s), s
+                return self._read(template, s, shardings), s
             except Exception as e:          # corrupt → try older
                 last_err = e
         raise FileNotFoundError(
             f"no restorable checkpoint in {self.dir}: {last_err}")
 
-    def _read(self, template, step: int):
+    def _read(self, template, step: int, shardings=None):
         d = os.path.join(self.dir, f"ckpt_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as fh:
             manifest = json.load(fh)
@@ -139,4 +167,24 @@ class CheckpointManager:
             if meta["dtype"] == "bfloat16":
                 t = t.view(torch.bfloat16)
             values.append(t)
-        return tree_lib.unflatten(template, values)
+        if shardings is None:
+            return tree_lib.unflatten(template, values)
+        placed = [sharding.distribute(t.to(leaf.dtype), sh) for t, leaf, sh
+                  in zip(values, flat_t,
+                         tree_lib.matching(template, shardings))]
+        return tree_lib.unflatten(template, placed, replace=True)
+
+
+def _mesh_of(tree):
+    """The mesh of the tree's first DTensor leaf (None if it has none)."""
+    for t in tree_lib.leaves(tree):
+        if sharding.is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes a checkpoint of a tree on ``mesh``: the
+    mesh's first rank does."""
+    import torch.distributed as dist
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])

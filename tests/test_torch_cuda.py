@@ -1281,6 +1281,68 @@ def test_moe_prefill_repeats_bit_equal_on_the_card(cuda, arch, dtype):
     assert bool(torch.isfinite(a).all())
 
 
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A process group of one NCCL rank (this process) and its (1, 1)
+    (data, model) mesh on the card; the group is destroyed after."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, device_id=torch.device("cuda",
+                                             torch.cuda.current_device()),
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_local_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_moe_inputs(cuda, dtype):
+    from repro_torch.models import moe
+    m = moe.init_moe_params(torch.Generator(cuda).manual_seed(0), 256, 128,
+                            32, device=cuda)
+    x = torch.randn(4, 64, 256, generator=torch.Generator(cuda)
+                    .manual_seed(1), device=cuda).to(dtype)
+    return m, x
+
+
+def test_sharded_moe_at_world_1_matches_local_on_the_card(nccl_mesh, cuda):
+    """moe_ffn_sharded over one NCCL rank (the all-to-alls copy within the
+    card) against moe_ffn_local, float32, at a factor where nothing
+    drops (C = N tokens a group)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+    m, x = _sharded_moe_inputs(cuda, torch.float32)
+    cf = 32 / 8
+    stats = {}
+    xd = sharding.distribute(x, sharding.Sharding(nccl_mesh,
+                                                  ("data", "model", None)))
+    out, aux = moe.moe_ffn_sharded(m, xd, top_k=8, capacity_factor=cf,
+                                   act="swiglu", mesh=nccl_mesh, stats=stats)
+    want, want_aux = moe.moe_ffn_local(m, x, top_k=8, capacity_factor=cf)
+    assert int(stats["send_dropped"]) == int(stats["expert_dropped"]) == 0
+    assert bool(stats["kept"].all())
+    torch.testing.assert_close(out.full_tensor(), want, rtol=1e-4,
+                               atol=1e-4)
+    assert float(aux.full_tensor()) == pytest.approx(float(want_aux),
+                                                     abs=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_moe_repeats_bit_equal_on_the_card(nccl_mesh, cuda, dtype):
+    """Two runs of moe_ffn_sharded at the registered factor (1.25, slots
+    dropped) give bit-equal outputs: gathers, no atomics."""
+    from repro_torch.models import moe
+    m, x = _sharded_moe_inputs(cuda, dtype)
+    kw = dict(top_k=8, capacity_factor=1.25, act="swiglu", mesh=nccl_mesh)
+    a, _ = moe.moe_ffn_sharded(m, x, **kw)
+    b, _ = moe.moe_ffn_sharded(m, x, **kw)
+    assert torch.equal(a, b)
+    assert bool(torch.isfinite(a).all())
+
+
 def _top_k_agree(values, indices, want_values, want_indices, tol=1e-4):
     """Values within ``tol``; indices equal outside tie groups (runs of
     values closer than 2·tol), a group's set equal where it ends before
