@@ -183,7 +183,20 @@ Phases, each fatal on failure, each timed:
      both paths, the all-to-alls' bytes and device ms from the profiler
      (with one card they are copies within it); then granite's whole
      tree placed by ``lm_param_spec`` (tp), saved and restored through
-     ``restore(shardings=)``, torch.equal (``mesh_restore``).
+     ``restore(shardings=)``, torch.equal (``mesh_restore``);
+ 10. the last modules of the reference (``run_examples_phase``): the five
+     examples of ``repro_torch.examples`` on the card at the reference
+     scripts' sizes (quickstart, search_engine at 2**17 documents and 40
+     queries, recsys_retrieval, gnn_sampling's 60 steps, train_lm's 300
+     steps with checkpoints under build/), each with its launches by
+     kernel (counts set to 0 just before it), search_engine's ms/query a
+     build; fatal if quickstart does not launch K1, K2 and K3 or an
+     example's own check fails.  Meanwhile, in two child processes
+     (``dryrun_child``), the dry-run of internlm2-1.8b decode_32k on the
+     2×16×16 mesh and paper-index svs_batch on the 16×16 one over a fake
+     process group: each must exit 0, print OK, write its record and not
+     initialise CUDA; their roofline rows (H100 SXM 700 W data-sheet
+     constants: an analysis, not a measurement) are printed.
 The last two lines are the kernels' JSON record and the device line.  It
 exits nonzero, printing no result, where there is no CUDA card.
 """
@@ -3540,6 +3553,93 @@ def mesh_restore(card, seed: int, dev) -> dict:
             shutil.rmtree(MESH_CKPT, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the examples on the card, the dry-run in child processes
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "search_engine", "recsys_retrieval",
+            "gnn_sampling", "train_lm")
+QUICKSTART_KERNELS = ("unpack_blocks", "gallop_tiles",
+                      "packed_gallop_batched")       # K1, K2, K3
+DRYRUN_CELLS = (("internlm2-1.8b", "decode_32k", "multipod"),
+                ("paper-index", "svs_batch", "pod"))
+DRYRUN_OUT = ROOT / "build" / "phase10-dryrun"
+LM_DEMO_CKPT = ROOT / "build" / "phase10-lm-demo"
+DRYRUN_TIMEOUT = 300
+
+
+def dryrun_child() -> None:
+    """One dry-run cell in this process (argv: arch shape mesh out dir),
+    then fatal if it initialised CUDA."""
+    from repro_torch.launch import dryrun
+    arch, shape, mesh, out = sys.argv[1:5]
+    dryrun.run_cell(arch, shape, mesh, out)
+    if torch.cuda.is_initialized():
+        raise SystemExit(f"the dry-run of {arch} {shape} initialised CUDA")
+    print("cuda initialised: False", flush=True)
+
+
+def run_examples_phase(dev) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import importlib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    shutil.rmtree(LM_DEMO_CKPT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = [(cell, subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_child()",
+         *cell, str(DRYRUN_OUT)], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for cell in DRYRUN_CELLS]
+    out = {}
+    try:
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            kw = {"ckpt_dir": str(LM_DEMO_CKPT)} if name == "train_lm" else {}
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = mod.main(dev, **kw)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            launched = {k: v for k, v in ops.launches().items() if v}
+            out[name] = {"s": took, "launches": launched}
+            log(f"phase 10: example {name}: {took:.1f} s, launches "
+                f"{launched}")
+            if name == "quickstart":
+                missing = [k for k in QUICKSTART_KERNELS
+                           if not launched.get(k)]
+                if missing:
+                    raise AssertionError(f"quickstart launched no "
+                                         f"{missing} on the card")
+            if name == "search_engine":
+                for (codec, B), r in res.items():
+                    log(f"phase 10: search_engine {codec} B={B}: "
+                        f"{r['ms_per_query']} ms/query, {r['hits']} hits, "
+                        f"{r['bits_per_int']} bits/int")
+        log(f"phase 10: card {nvidia_smi_line()}")
+        for cell, child in children:
+            stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT)
+            print(stdout, end="", flush=True)
+            record = DRYRUN_OUT / f"{cell[0]}__{cell[1]}__{cell[2]}.json"
+            if child.returncode != 0 or "OK" not in stdout or \
+                    "cuda initialised: False" not in stdout or \
+                    not record.exists():
+                raise AssertionError(f"the dry-run of {cell} failed "
+                                     f"(exit {child.returncode}):\n"
+                                     f"{stderr[-3000:]}")
+    finally:
+        for _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(LM_DEMO_CKPT, ignore_errors=True)
+    log("phase 10: the dry-run's roofline rows (analysis with H100 SXM "
+        "700 W data-sheet constants, not a measurement):\n"
+        + roofline.format_table(roofline.load_results(str(DRYRUN_OUT))))
+    return out
+
+
 def phase_done(k: int, t0: float) -> float:
     now = time.perf_counter()
     log(f"phase {k} done in {now - t0:.1f} s")
@@ -3806,7 +3906,9 @@ def main(argv=None) -> int:
         f"path (added to K1's main-path launches, now {k1['launches']})")
     t_phase = phase_done(8, t_phase)
     run_mesh_phase(args.seed)
-    phase_done(9, t_phase)
+    t_phase = phase_done(9, t_phase)
+    run_examples_phase(dev)
+    phase_done(10, t_phase)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -166,6 +166,133 @@ def distribute_tree(params, shardings):
     return tree_lib.unflatten(params, values, replace=True)
 
 
+def write_at(t: torch.Tensor, index: tuple, value) -> None:
+    """``t[index] = value`` in place, ``index`` a tuple of ints and
+    ``slice(None)``.  On a DTensor ``t`` each rank writes the part its
+    block holds, and nothing where an int falls outside its block, as a
+    partitioned ``dynamic_update_slice`` does: ``value`` is laid out to
+    match first, and no collective moves ``t`` (DTensor's own indexing
+    would gather ``t``'s sharded dim and write into the gathered copy)."""
+    if not is_dtensor(t):
+        t[index] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = t.device_mesh
+    shape, offset = _block_offsets(t)
+    ints = [d for d, ix in enumerate(index) if isinstance(ix, int)]
+    local = []
+    for d, ix in enumerate(index):
+        if d in ints:
+            if not offset[d] <= ix < offset[d] + shape[d]:
+                return
+            ix -= offset[d]
+        local.append(ix)
+    want = [Shard(p.dim - sum(d < p.dim for d in ints))
+            if isinstance(p, Shard) and p.dim not in ints else Replicate()
+            for p in t.placements]
+    if not is_dtensor(value):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    t.to_local()[tuple(local)] = value.redistribute(mesh, want).to_local()
+
+
+def _block_offsets(t) -> tuple[list[int], list[int]]:
+    """This rank's block of DTensor ``t``: its shape and its offset in
+    each dim (every sharded dim divides evenly)."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    idx, n = [0] * t.ndim, [1] * t.ndim
+    for m, p in enumerate(t.placements):          # mesh order, first major
+        if isinstance(p, Shard):
+            idx[p.dim] = idx[p.dim] * mesh.size(m) + coord[m]
+            n[p.dim] *= mesh.size(m)
+    shape = [s // k for s, k in zip(t.shape, n)]
+    return shape, [i * s for i, s in zip(idx, shape)]
+
+
+class _PickLast(torch.autograd.Function):
+    """``torch.gather(t, -1, idx)`` for ``idx`` (..., 1).  On a DTensor
+    sharded over its last dim each rank picks the entries its block holds
+    (zero elsewhere) and the result is a partial sum over those mesh dims;
+    the backward writes each row's one term into zeros, on a DTensor into
+    the rank's block.  DTensor's own gather would build the gradient at
+    ``t``'s global size on every rank.  Only the indices are kept for the
+    backward, as an indexed read keeps them."""
+
+    @staticmethod
+    def forward(ctx, t, idx):
+        ctx.shape, ctx.dtype = t.shape, t.dtype
+        if not is_dtensor(t):
+            ctx.save_for_backward(idx)
+            return torch.gather(t, -1, idx)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        last = t.ndim - 1
+        mesh = t.device_mesh
+        whole = [Replicate() if p.is_shard(last) else p for p in t.placements]
+        if not is_dtensor(idx):
+            idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        shape, offset = _block_offsets(t)
+        lidx = idx.redistribute(mesh, whole).to_local() - offset[last]
+        inside = (lidx >= 0) & (lidx < shape[last])
+        lidx = lidx.clamp(0, shape[last] - 1)
+        ctx.save_for_backward(lidx, inside)
+        ctx.layout = (mesh, t.placements, whole, shape)
+        got = torch.gather(t.to_local(), -1, lidx).masked_fill_(~inside, 0)
+        return DTensor.from_local(
+            got, mesh, [Partial() if p.is_shard(last) else p
+                        for p in t.placements], run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not is_dtensor(grad):
+            (idx,) = ctx.saved_tensors
+            return grad.new_zeros(ctx.shape).scatter_add_(-1, idx, grad), \
+                None
+        from torch.distributed.tensor import DTensor
+        lidx, inside = ctx.saved_tensors
+        mesh, placements, whole, shape = ctx.layout
+        g = grad.redistribute(mesh, whole).to_local()
+        out = torch.zeros(shape, dtype=ctx.dtype, device=g.device) \
+            .scatter_add_(-1, lidx, g.masked_fill(~inside, 0).to(ctx.dtype))
+        return DTensor.from_local(out, mesh, placements,
+                                  run_check=False), None
+
+
+class _LogSumExpLast(torch.autograd.Function):
+    """``torch.logsumexp(x, -1)`` as ATen computes it (the max, set to 0
+    where infinite; the log of the sum of exps; plus the max), in ops
+    that DTensor shards over the reduced dim: a max and a sum, each a
+    partial reduction over that dim's ranks.  The backward is torch's,
+    ``grad · exp(x − lse)``.  DTensor's own ``logsumexp`` gathers ``x``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = torch.amax(x, -1, keepdim=True)
+        m = m.masked_fill(m.abs() == float("inf"), 0)
+        out = torch.log(torch.sum(torch.exp(x - m), -1)) + m[..., 0]
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - out[..., None])
+
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``, equal bit for bit, forward and
+    backward; see ``_LogSumExpLast``."""
+    return _LogSumExpLast.apply(x)
+
+
+def pick_last(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(t, -1, idx)``, ``idx`` (..., 1) int64; see
+    ``_PickLast`` for a DTensor ``t``."""
+    return _PickLast.apply(t, idx)
+
+
 # ---------------------------------------------------------------------------
 # mesh-aware hint plumbing
 # ---------------------------------------------------------------------------

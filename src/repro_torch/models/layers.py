@@ -7,8 +7,9 @@ products take bf16 operands with float32 accumulation (written here as a
 float32 product of the widened operands: bf16 × bf16 products are exact in
 float32); softmax runs in float32 and the probabilities are cast to the
 query's dtype before the value product.  ``attention_chunked``'s
-``lax.scan`` is a Python loop over KV chunks.  The reference's
-``shard_hint`` calls are the identity on one device and are left out.
+``lax.scan`` is a Python loop over KV chunks.  ``attention_decode`` keeps
+the reference's two ``shard_hint`` calls: the identity on one card (no
+DTensor), they lay out the dry-run's decode (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -114,11 +115,14 @@ def attention_chunked(q, k, v, chunk: int = 1024, causal: bool = True):
 def attention_decode(q, k_cache, v_cache, length):
     """Single-token decode: q (B, 1, H, D) vs cache (B, S, Hkv, D);
     positions ≥ length are masked.  O(S·D) per head."""
+    from repro_torch.distributed.sharding import shard_hint
     B, _, H, D = q.shape
     n_rep = H // k_cache.shape[2]
+    q = shard_hint(q, "decode_q")
     k = _repeat_kv(k_cache, n_rep)
     v = _repeat_kv(v_cache, n_rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(D)
+    logits = shard_hint(logits, "decode_logits")
     mask = torch.arange(k.shape[1], device=q.device)[None, None, None, :] \
         < length
     logits = torch.where(mask, logits, NEG_INF)

@@ -26,8 +26,17 @@ the reference's ``jax.checkpoint`` policy, per layer:
 The head loss is recomputed in the backward pass as ``jax.checkpoint(
 head_loss)`` is, so no (B, S, V) logits are kept.  Remat changes what is
 kept, never a number: the recomputation runs the same ops on the same
-inputs.  The picked logit is an indexed read, whose backward on a card is
-a sorted scatter, bit-equal from run to run.
+inputs.  The log-sum-exp is ``sharding.logsumexp_last`` (torch's, in ops
+that keep vocab-sharded logits sharded).  The picked logit is a gather on
+the vocab dim (``sharding.pick_last``, the reference's
+``take_along_axis``: on vocab-sharded logits each rank picks from its own
+block, where an indexed read gathers the whole logits); its backward adds
+each row's one term to zero, so it is bit-equal from run to run.
+
+The reference's ``shard_hint`` sites are kept: the identity on plain
+tensors, they lay out the dry-run's DTensors (``launch/dryrun.py``), and
+the decode step writes its cache through ``sharding.write_at``, which on
+a sharded cache writes each rank's own block.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import (logsumexp_last, pick_last,
+                                               shard_hint, write_at)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe, segment
@@ -227,20 +238,26 @@ def layer_qkv(lp: DecoderLayer, x, cos, sin, cfg: LMConfig):
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
-def layer_rest(lp: DecoderLayer, x, attn, cfg: LMConfig):
+def layer_rest(lp: DecoderLayer, x, attn, cfg: LMConfig,
+               resid_hints: bool = False):
     """The rest of one layer: output projection, residual, RMSNorm, the GLU
     MLP or the MoE layer, residual.  Returns (x, aux): the MoE layer's
-    load-balancing term, 0 for a dense layer."""
+    load-balancing term, 0 for a dense layer.  ``resid_hints``: the
+    training forward's "act_resid" hints on both branches and the sum."""
+    hint = (lambda t: shard_hint(t, "act_resid")) if resid_hints else \
+        (lambda t: t)
     B, S = x.shape[:2]
-    x = x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ lp.wo.to(x.dtype)
+    proj = attn.reshape(B, S, cfg.n_heads * cfg.hd) @ lp.wo.to(x.dtype)
+    x = x + hint(proj)                # reduce-scatter at the producer
     h = L.rms_norm(x, lp.ln2.float())
     if cfg.is_moe:
         out, aux = moe.moe_ffn(lp.moe, h, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
                                act=cfg.act)
-        return x + out, aux
-    return x + L.glu_mlp(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act), \
-        torch.zeros((), device=x.device)
+    else:
+        out = L.glu_mlp(h, lp.w_in, lp.w_gate, lp.w_out, cfg.act)
+        aux = torch.zeros((), device=x.device)
+    return hint(x + hint(out)), aux
 
 
 def layer_out(lp: DecoderLayer, x, attn, cfg: LMConfig):
@@ -264,12 +281,17 @@ def _layer_fwd(lp: DecoderLayer, x, cos, sin, cfg: LMConfig):
     """One decoder layer on (B, S, D) as the reference's training forward
     runs it.  Returns (x, aux)."""
     q, k, v = layer_qkv(lp, x, cos, sin, cfg)
+    q = shard_hint(q, "act_qkv")
+    # an explicit all-gather of the sequence-parallel K/V (the reference's
+    # comment: without it XLA falls into a full rematerialization reshard)
+    k = shard_hint(k, "act_kv")
+    v = shard_hint(v, "act_kv")
     if x.shape[1] > cfg.full_attn_max_seq:
         attn = L.attention_chunked(q, k, v, chunk=cfg.attn_chunk)
     else:
         attn = L.attention_full(q, k, v,
                                 scores_dtype=_dtype(cfg.attn_scores_dtype))
-    return layer_rest(lp, x, attn, cfg)
+    return layer_rest(lp, x, attn, cfg, resid_hints=True)
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -319,14 +341,12 @@ def lm_hidden(params: LM, tokens, cfg: LMConfig):
 
 def _head_loss(x, head, labels):
     """Mean NLL over labels ≥ 0: compute-dtype logits, a float32
-    logsumexp, the picked logit by an indexed read."""
+    logsumexp, the picked logit by a gather on the vocab dim."""
     logits = x @ head.to(x.dtype).T                          # (B, S, V)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    B, S = labels.shape
-    picked = logits[torch.arange(B, device=x.device)[:, None],
-                    torch.arange(S, device=x.device)[None, :],
-                    torch.clamp_min(labels.long(), 0)]
-    nll = lse - picked.float()
+    logits = shard_hint(logits, "logits")                    # V over 'model'
+    lse = logsumexp_last(logits.float())
+    picked = pick_last(logits, torch.clamp_min(labels.long(), 0)[..., None])
+    nll = lse - picked[..., 0].float()
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
 
@@ -362,11 +382,13 @@ def prefill(params: LM, tokens, cfg: LMConfig):
     ks, vs = [], []
     for lp in params.layers:
         q, k, v = layer_qkv(lp, x, cos, sin, cfg)
+        k = shard_hint(k, "kv_cache")
+        v = shard_hint(v, "kv_cache")
         if S > cfg.full_attn_max_seq:
             attn = L.attention_chunked(q, k, v, chunk=cfg.attn_chunk)
         else:
             attn = L.attention_full(q, k, v)
-        x = layer_out(lp, x, attn, cfg)
+        x = shard_hint(layer_out(lp, x, attn, cfg), "act_resid")
         ks.append(k)
         vs.append(v)
     return _logits(params, x[:, -1], cfg), {"k": torch.stack(ks),
@@ -383,8 +405,8 @@ def decode_step(params: LM, cache, token, pos, cfg: LMConfig):
     cos, sin = rope_tables(torch.tensor([pos], device=x.device), B, cfg)
     for i, lp in enumerate(params.layers):
         q, k, v = layer_qkv(lp, x, cos, sin, cfg)
-        cache["k"][i, :, pos] = k[:, 0]
-        cache["v"][i, :, pos] = v[:, 0]
+        write_at(cache["k"], (i, slice(None), pos), k[:, 0])
+        write_at(cache["v"], (i, slice(None), pos), v[:, 0])
         attn = L.attention_decode(q, cache["k"][i], cache["v"][i], pos + 1)
         x = layer_out(lp, x, attn, cfg)
     return _logits(params, x[:, 0], cfg), cache
