@@ -102,6 +102,11 @@ def intersect_gallop(r: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 # tiled merge (V1/V3 analogue)
 # --------------------------------------------------------------------------
 
+# Host waits for the card in one ``intersect_tiled`` on CUDA: ``torch.isin``
+# takes its sort path at these sizes (``_unique`` of each operand), which
+# waits 3 times (torch 2.11, read under ``set_sync_debug_mode("warn")``).
+ISIN_SYNCS = 3
+
 def intersect_tiled(r: torch.Tensor, f: torch.Tensor, tile_r: int = 128,
                     tile_f: int = 1024) -> torch.Tensor:
     """Mask of the tile-granular two-pointer merge.

@@ -503,25 +503,21 @@ def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
                       stats: dict | None, timings=None) -> torch.Tensor:
     """Assemble and launch one svs chunk; ``timings`` (a
     ``pipeline.StageTimings``) takes the assembly and the launch apart."""
-    t0 = time.perf_counter()
-    R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items, pool)
-    device = R.device
-    pk = pk_active = None
-    mode, rows, Jp = _svs_launch_args(key, items, pkparts, stats)
-    if pkparts is not None:
-        stacked, PBk, pk_act = pkparts
-        pk = _compose_pk(stacked, its.to_device(PBk, device))
-        pk_active = its.to_device(pk_act, device)
-    active = its.to_device(active, device)
-    if stats is not None:
-        stats.setdefault("signatures", set()).add(("svs", key, Bp, J, Jb))
-    _PROGRAMS.add(("svs", key, Bp, J, Jb, Jp))
-    t1 = time.perf_counter()
-    out = _svs_program(R, F, active, pk, pk_active, W, mode, rows)
-    if timings is not None:
-        timings.assemble += t1 - t0
-        timings.dispatch += time.perf_counter() - t1
-    return out
+    with source.span(timings, "batch.assemble"):
+        R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items, pool)
+        device = R.device
+        pk = pk_active = None
+        mode, rows, Jp = _svs_launch_args(key, items, pkparts, stats)
+        if pkparts is not None:
+            stacked, PBk, pk_act = pkparts
+            pk = _compose_pk(stacked, its.to_device(PBk, device))
+            pk_active = its.to_device(pk_act, device)
+        active = its.to_device(active, device)
+        if stats is not None:
+            stats.setdefault("signatures", set()).add(("svs", key, Bp, J, Jb))
+        _PROGRAMS.add(("svs", key, Bp, J, Jb, Jp))
+    with source.span(timings, "batch.dispatch"):
+        return _svs_program(R, F, active, pk, pk_active, W, mode, rows)
 
 
 def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
@@ -560,17 +556,13 @@ def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
 
 def _launch_bitmap_group(key: GroupKey, items: list[_Item], pool,
                          stats: dict | None, timings=None) -> torch.Tensor:
-    t0 = time.perf_counter()
-    words, Bp, J = _assemble_bitmap(key, items, pool)
-    if stats is not None:
-        stats.setdefault("signatures", set()).add(("bm", key, Bp, J))
-    _PROGRAMS.add(("bm", key, Bp, J, 0, 0))
-    t1 = time.perf_counter()
-    out = _bitmap_and_program(words)
-    if timings is not None:
-        timings.assemble += t1 - t0
-        timings.dispatch += time.perf_counter() - t1
-    return out
+    with source.span(timings, "batch.assemble"):
+        words, Bp, J = _assemble_bitmap(key, items, pool)
+        if stats is not None:
+            stats.setdefault("signatures", set()).add(("bm", key, Bp, J))
+        _PROGRAMS.add(("bm", key, Bp, J, 0, 0))
+    with source.span(timings, "batch.dispatch"):
+        return _bitmap_and_program(words)
 
 
 def _chunk_size(key: GroupKey, items: list[_Item],
@@ -720,10 +712,13 @@ def _compile_count() -> int:
 @dataclasses.dataclass
 class PendingBatch:
     """Launched but not yet collected: per group chunk, its items (None in
-    shard-pad slots) and its result copies (see ``copy_to_host``)."""
+    shard-pad slots) and its result copies (see ``copy_to_host``), and the
+    launcher's ``timings`` (a ``pipeline.StageTimings`` or None), which
+    ``collect_batch``'s wait and collect spans add to."""
     n_queries: int
     max_results: int
     launched: list          # [(key, chunk_items, [(host tensor, event)])]
+    timings: object = None
 
 
 def copy_to_host(res: torch.Tensor) -> tuple:
@@ -768,16 +763,14 @@ def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
         stats["n_compiles"] = (stats.get("n_compiles", 0)
                                + _compile_count() - c0)
     return PendingBatch(n_queries=n_queries, max_results=max_results,
-                        launched=launched)
+                        launched=launched, timings=timings)
 
 
 def accumulate_launch_stats(stats: dict | None, groups, n_dispatches: int):
-    """Accumulate the per-launch counters; ``n_programs`` is an alias of
-    ``n_dispatches``, as in the reference."""
+    """Accumulate the per-launch counters."""
     if stats is None:
         return
     for k, v in (("n_groups", len(groups)), ("n_dispatches", n_dispatches),
-                 ("n_programs", n_dispatches),
                  ("n_items", sum(len(v) for v in groups.values()))):
         stats[k] = stats.get(k, 0) + v
 
@@ -788,34 +781,41 @@ def collect_batch(pending: PendingBatch) -> list[QueryResult]:
     Shard-pad slots (None) are skipped.  It launches nothing and reads
     only pinned host memory, so it may run on another thread than the
     launches (the live server's collector); an event's wait does not
-    depend on that thread's current device."""
+    depend on that thread's current device.  ``pending.timings`` takes
+    the waits (``batch.wait``) and the host work (``batch.collect``)
+    apart."""
+    timings = pending.timings
     per_query: list[list[tuple[int, np.ndarray]]] = \
         [[] for _ in range(pending.n_queries)]
     counts = [0] * pending.n_queries
     for key, chunk, copies in pending.launched:
-        for _, event in copies:
-            if event is not None:
-                event.synchronize()
-        host = (copies[0][0].numpy() if len(copies) == 1 else
-                np.concatenate([h.numpy() for h, _ in copies]))
-        for b, it in enumerate(chunk):
-            if it is None:
-                continue
-            cnt = int(host[b, -1])
-            counts[it.qi] += cnt
-            if not cnt:
-                continue
-            row = host[b, :-1]
-            docs = (bm.extract_np(row) if key.kind == "bitmap"
-                    else row[row != SENT])
-            per_query[it.qi].append((it.pi, docs.astype(np.int64)
-                                     + it.doc_lo))
+        with source.span(timings, "batch.wait"):
+            for _, event in copies:
+                if event is not None:
+                    event.synchronize()
+        with source.span(timings, "batch.collect"):
+            host = (copies[0][0].numpy() if len(copies) == 1 else
+                    np.concatenate([h.numpy() for h, _ in copies]))
+            for b, it in enumerate(chunk):
+                if it is None:
+                    continue
+                cnt = int(host[b, -1])
+                counts[it.qi] += cnt
+                if not cnt:
+                    continue
+                row = host[b, :-1]
+                docs = (bm.extract_np(row) if key.kind == "bitmap"
+                        else row[row != SENT])
+                per_query[it.qi].append((it.pi, docs.astype(np.int64)
+                                         + it.doc_lo))
     out = []
-    for qi in range(pending.n_queries):
-        chunks = [d for _, d in sorted(per_query[qi], key=lambda x: x[0])]
-        docs = (np.concatenate(chunks) if chunks
-                else np.zeros(0, np.int64))[: pending.max_results]
-        out.append(QueryResult(count=counts[qi], docs=docs))
+    with source.span(timings, "batch.collect"):
+        for qi in range(pending.n_queries):
+            chunks = [d for _, d in sorted(per_query[qi],
+                                           key=lambda x: x[0])]
+            docs = (np.concatenate(chunks) if chunks
+                    else np.zeros(0, np.int64))[: pending.max_results]
+            out.append(QueryResult(count=counts[qi], docs=docs))
     return out
 
 

@@ -14,6 +14,13 @@ The engine follows the reference's kernel branches (its
 ``REPRO_USE_KERNELS=1`` structure) on every device and calls the
 ``kernels.ops`` wrappers there.  There is no switch: the index's device
 picks the hand kernels (CUDA) or their plain versions (CPU).
+
+With a ``stats`` dict a query times its stages (``source.span``:
+``engine.decode``, ``engine.fold``, ``engine.compact``,
+``engine.result``) and counts in ``stats["syncs"]`` each wait of the host
+for the card, as the card makes them, on every device: a copy to the
+host, a copy from pageable memory, a compaction's boolean index, a
+popcount read back, ``torch.isin``'s sort (``its.ISIN_SYNCS``).
 """
 
 from __future__ import annotations
@@ -83,7 +90,9 @@ def _packed_probe(r: torch.Tensor, r_count: int, src: source.PackedSource,
     the block-max index for the candidate blocks, the device decodes only
     those and gallops (``ops.intersect_packed_batch``, K3 on the card).  The
     padded layout operands are memoized per (part, term); only the candidate
-    block ids move to the device here."""
+    block ids move to the device here.  The host waits twice: for the
+    candidates' copy off the card, and for the block ids' copy from
+    pageable memory."""
     blk = src.candidate_block_ids(r[:r_count].cpu().numpy())
     k_pad, t_pad, e_pad = src.self_pads()
     c_pad = its.pow2_bucket(len(blk), floor=source.CAND_FLOOR)
@@ -91,6 +100,7 @@ def _packed_probe(r: torch.Tensor, r_count: int, src: source.PackedSource,
         source.cached_layout_dev(src, (k_pad, t_pad, e_pad), stats)
     blk_p = torch.from_numpy(source.pad_block_ids(blk, c_pad, k_pad)).to(
         r.device)
+    source._bump(stats, "syncs", 2)
     source._bump(stats, "decoded_ints", c_pad * src.block_rows * 128)
     source._bump(stats, "skip_folds")
     args = (words, widths, offsets, maxes, blk_p, exc_pos, exc_add)
@@ -99,10 +109,22 @@ def _packed_probe(r: torch.Tensor, r_count: int, src: source.PackedSource,
         mode=src.mode, block_rows=src.block_rows)[0]
 
 
+def _compact(r: torch.Tensor, mask: torch.Tensor, stats: dict | None):
+    """``its.compact``: its boolean index waits for the count of kept
+    values."""
+    with source.span(stats, "engine.compact"):
+        source._bump(stats, "syncs")
+        return its.compact(r, mask)
+
+
 def _intersect_part(part: IndexPart, term_ids: list[int], codec,
                     skip: bool = True, cache=None,
                     stats: dict | None = None, pool=None):
-    """Returns (('list', padded candidate vals) | ('bitmap', words), count)."""
+    """Returns (('list', padded candidate vals) | ('bitmap', words), count).
+    ``stats`` takes the spans ``engine.decode`` (each ``source.resolve``),
+    ``engine.fold`` (each fold of the candidates with one more list or
+    bitmap) and ``engine.compact``, and counts in ``syncs`` each wait of
+    the host for the card."""
     tps = [part.terms[t] for t in term_ids]
     if any(tp.kind == "empty" for tp in tps):
         return None, 0
@@ -110,35 +132,45 @@ def _intersect_part(part: IndexPart, term_ids: list[int], codec,
     bitmaps = [tp for tp in tps if tp.kind == "bitmap"]
 
     if not lists:
-        words = bitmaps[0].payload
-        for tp in bitmaps[1:]:
-            words = bm.bitmap_and(words, tp.payload)
-        return ("bitmap", words), bm.popcount(words)
+        with source.span(stats, "engine.fold"):
+            words = bitmaps[0].payload
+            for tp in bitmaps[1:]:
+                words = bm.bitmap_and(words, tp.payload)
+        with source.span(stats, "engine.compact"):
+            source._bump(stats, "syncs")          # the popcount's read
+            return ("bitmap", words), bm.popcount(words)
 
     id_of = {id(tp): t for t, tp in zip(term_ids, tps)}
     # the shortest list seeds the candidate buffer — always decoded
-    seed = source.resolve(part, id_of[id(lists[0])], lists[0], codec,
-                          cache=cache, r_count=None, stats=stats, pool=pool)
+    with source.span(stats, "engine.decode"):
+        seed = source.resolve(part, id_of[id(lists[0])], lists[0], codec,
+                              cache=cache, r_count=None, stats=stats,
+                              pool=pool)
     r, r_count = seed.vals, seed.n
     for tp in lists[1:]:
         if r_count == 0:
             break
-        src = source.resolve(part, id_of[id(tp)], tp, codec, cache=cache,
-                             r_count=r_count, skip=skip, stats=stats,
-                             pool=pool)
-        if isinstance(src, source.PackedSource):
-            # galloping + skip: the long list is never fully decoded
-            mask = _packed_probe(r, r_count, src, stats=stats)
-        elif tp.n / max(r_count, 1) > its.TILED_MAX_RATIO:
-            mask = ops.intersect_gallop(r, src.vals)
-        else:
-            mask = its.intersect_auto(r, src.vals, r_count, tp.n)
-        r, r_count = its.compact(r, mask)
+        with source.span(stats, "engine.decode"):
+            src = source.resolve(part, id_of[id(tp)], tp, codec, cache=cache,
+                                 r_count=r_count, skip=skip, stats=stats,
+                                 pool=pool)
+        with source.span(stats, "engine.fold"):
+            if isinstance(src, source.PackedSource):
+                # galloping + skip: the long list is never fully decoded
+                mask = _packed_probe(r, r_count, src, stats=stats)
+            elif tp.n / max(r_count, 1) > its.TILED_MAX_RATIO:
+                mask = ops.intersect_gallop(r, src.vals)
+            else:
+                # the ratio is at most TILED_MAX_RATIO: the tiled merge
+                mask = its.intersect_auto(r, src.vals, r_count, tp.n)
+                source._bump(stats, "syncs", its.ISIN_SYNCS)
+        r, r_count = _compact(r, mask, stats)
     for tp in bitmaps:
         if r_count == 0:
             break
-        mask = bm.probe(tp.payload, r, r != int(its.SENTINEL))
-        r, r_count = its.compact(r, mask)
+        with source.span(stats, "engine.fold"):
+            mask = bm.probe(tp.payload, r, r != int(its.SENTINEL))
+        r, r_count = _compact(r, mask, stats)
     return ("list", r), r_count
 
 
@@ -152,9 +184,12 @@ def query(index: HybridIndex, term_ids: list[int],
     already-decoded lists); None → Table 5 regime (decode per query).  Long
     skip-capable lists go through the packed skip path unless
     ``skip=False``.  stats: optional dict accumulating decoded_ints /
-    skip_folds counters.  pool: optional ResidentPool on the index's
-    device — decoded operands are served from (and staged into) it; long
-    skip-served lists still go to K3 unless the pool holds them decoded."""
+    skip_folds counters, the spans of ``_intersect_part`` and
+    ``engine.result`` (the copies to the host and the concatenation), and
+    the host's waits for the card in ``syncs``.  pool: optional
+    ResidentPool on the index's device — decoded operands are served from
+    (and staged into) it; long skip-served lists still go to K3 unless the
+    pool holds them decoded."""
     codec = codec_lib.get_codec(index.codec_name)
     total = 0
     out_docs = []
@@ -163,14 +198,17 @@ def query(index: HybridIndex, term_ids: list[int],
                                    cache=cache, stats=stats, pool=pool)
         total += cnt
         if cnt and res is not None:
-            kind, payload = res
-            if kind == "list":
-                docs = payload[:cnt].cpu().numpy()
-            else:
-                docs = bm.extract_np(payload.cpu().numpy())
-            out_docs.append(docs.astype(np.int64) + part.doc_lo)
-    docs = (np.concatenate(out_docs) if out_docs
-            else np.zeros(0, np.int64))[:max_results]
+            with source.span(stats, "engine.result"):
+                kind, payload = res
+                if kind == "list":
+                    docs = payload[:cnt].cpu().numpy()
+                else:
+                    docs = bm.extract_np(payload.cpu().numpy())
+                source._bump(stats, "syncs")
+                out_docs.append(docs.astype(np.int64) + part.doc_lo)
+    with source.span(stats, "engine.result"):
+        docs = (np.concatenate(out_docs) if out_docs
+                else np.zeros(0, np.int64))[:max_results]
     return QueryResult(count=total, docs=docs)
 
 

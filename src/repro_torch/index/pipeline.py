@@ -27,11 +27,19 @@ return in submission order.
               megagroup fusion
     assemble  operand assembly (arena gathers / stacking, uploads)
     dispatch  program launches and result-copy enqueues
-    block     waiting for results at collect
+    block     ``collect_batch`` whole: wait + collect
+    wait      its waits on the card (each chunk's event)
+    collect   its host work: the result views, bitmap extraction, the
+              per-row loop and the per-query concatenation
 
-The assemble/dispatch split is made inside the launcher
-(``batch.launch_groups``, ``shard.launch_groups_sharded``); a custom
-``launch_fn`` that ignores the timings leaves both zero.  The sharded
+Each is a ``source.span`` (``pipeline.stage``, ``batch.assemble``,
+``batch.dispatch``, ``pipeline.block``, ``batch.wait``,
+``batch.collect``), so under a torch profiler each is also a
+``repro_torch.<name>`` range.  The assemble/dispatch split is made inside
+the launcher (``batch.launch_groups``, ``shard.launch_groups_sharded``),
+and the wait/collect split inside ``collect_batch``, which finds the
+timings on the ``PendingBatch`` the launcher made; a custom ``launch_fn``
+that ignores the timings leaves those four zero.  The sharded
 executor (``index.shard``) runs this loop through the ``schedule_fn`` /
 ``launch_fn`` hooks.
 """
@@ -39,10 +47,10 @@ executor (``index.shard``) runs this loop through the ``schedule_fn`` /
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 
 from repro_torch.index import batch as batch_lib
+from repro_torch.index import source
 from repro_torch.index.builder import HybridIndex
 from repro_torch.index.engine import QueryResult
 
@@ -53,10 +61,13 @@ class StageTimings:
     stage: float = 0.0          # host scheduling (resolve + bucket + fuse)
     assemble: float = 0.0       # operand assembly (gathers / stacks, uploads)
     dispatch: float = 0.0       # program launches
-    block: float = 0.0          # waiting for results
+    block: float = 0.0          # collect_batch: wait + collect
+    wait: float = 0.0           # collect_batch's waits on the card
+    collect: float = 0.0        # collect_batch's host work
     batches: int = 0
 
     def as_dict(self) -> dict:
+        """The reference's keys."""
         return {"stage_s": self.stage, "assemble_s": self.assemble,
                 "dispatch_s": self.dispatch, "block_s": self.block,
                 "batches": self.batches}
@@ -104,19 +115,15 @@ def execute_pipelined(index: HybridIndex, queries: list[list[int]], *,
     out: list[QueryResult] = []
 
     def drain_one():
-        t0 = time.perf_counter()
-        out.extend(batch_lib.collect_batch(inflight.popleft()))
-        if timings is not None:
-            timings.block += time.perf_counter() - t0
+        with source.span(timings, "pipeline.block"):
+            out.extend(batch_lib.collect_batch(inflight.popleft()))
 
     for lo in range(0, len(queries), batch_size):
         chunk = queries[lo: lo + batch_size]
-        t0 = time.perf_counter()
-        groups = schedule_fn(chunk, stats)
-        t1 = time.perf_counter()
+        with source.span(timings, "pipeline.stage"):
+            groups = schedule_fn(chunk, stats)
         pending = launch_fn(groups, len(chunk), stats)
         if timings is not None:
-            timings.stage += t1 - t0
             timings.batches += 1
         inflight.append(pending)
         while len(inflight) >= depth:

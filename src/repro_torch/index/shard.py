@@ -27,7 +27,6 @@ copy of a packed list's operands per device (``source.cached_layout_dev``).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -170,72 +169,71 @@ def _launch_svs_sharded(sharded: ShardedIndex, key, per_shard: list,
     out shard-contiguously ((shard, slot) flattened), operands assembled
     per shard from its pool on its device and glued along the row axis.
     Returns (flat item list with None pads, one result per device)."""
-    t0 = time.perf_counter()
-    S = sharded.n_shards
-    all_items = [it for sub in per_shard for it in sub]
-    Bq = batch_lib._bucket_rows(max(len(sub) for sub in per_shard))
-    if key.fused:
-        J, Jb, Jp = key.fused
-    else:
-        J = max((len(it.folds) for it in all_items), default=0)
-        Jb = max((batch_lib._n_bitmaps(it) for it in all_items), default=0)
-        Jp = (max((len(it.psrc) for it in all_items), default=0)
-              if key.packed is not None else 0)
-    parts = [batch_lib._assemble_svs(key, per_shard[sid], sharded.pools[sid],
-                                     bp=Bq, j=J, jb=Jb, jp=Jp,
-                                     device=sharded.pools[sid].device)
-             for sid in range(S)]
-    R = _glue(sharded, [p[0] for p in parts], axis=0)       # (S·Bq, M)
-    F = _glue(sharded, [p[1] for p in parts], axis=1)       # (J, S·Bq, N)
-    active = _put_host(sharded, np.concatenate([p[2] for p in parts], 1), 1)
-    W = (_glue(sharded, [p[4] for p in parts], axis=1) if Jb   # (Jb, S·Bq, W)
-         else [None] * len(R))
-    Pk = [p[3] for p in parts]
-    mode, rows, Jp = batch_lib._svs_launch_args(key, all_items, Pk[0], stats)
-    pks = pk_actives = [None] * len(R)
-    if key.packed is not None:
-        stacked = [_glue(sharded, [p[0][o] for p in Pk], axis=1)
-                   for o in range(6)]
-        PBk = _put_host(sharded, np.concatenate([p[1] for p in Pk], 1), 1)
-        pks = [batch_lib._compose_pk([s[d] for s in stacked], PBk[d])
+    with source.span(timings, "batch.assemble"):
+        S = sharded.n_shards
+        all_items = [it for sub in per_shard for it in sub]
+        Bq = batch_lib._bucket_rows(max(len(sub) for sub in per_shard))
+        if key.fused:
+            J, Jb, Jp = key.fused
+        else:
+            J = max((len(it.folds) for it in all_items), default=0)
+            Jb = max((batch_lib._n_bitmaps(it) for it in all_items),
+                     default=0)
+            Jp = (max((len(it.psrc) for it in all_items), default=0)
+                  if key.packed is not None else 0)
+        parts = [batch_lib._assemble_svs(key, per_shard[sid],
+                                         sharded.pools[sid],
+                                         bp=Bq, j=J, jb=Jb, jp=Jp,
+                                         device=sharded.pools[sid].device)
+                 for sid in range(S)]
+        R = _glue(sharded, [p[0] for p in parts], axis=0)    # (S·Bq, M)
+        F = _glue(sharded, [p[1] for p in parts], axis=1)    # (J, S·Bq, N)
+        active = _put_host(sharded,
+                           np.concatenate([p[2] for p in parts], 1), 1)
+        W = (_glue(sharded, [p[4] for p in parts], axis=1)  # (Jb, S·Bq, W)
+             if Jb else [None] * len(R))
+        Pk = [p[3] for p in parts]
+        mode, rows, Jp = batch_lib._svs_launch_args(key, all_items, Pk[0],
+                                                    stats)
+        pks = pk_actives = [None] * len(R)
+        if key.packed is not None:
+            stacked = [_glue(sharded, [p[0][o] for p in Pk], axis=1)
+                       for o in range(6)]
+            PBk = _put_host(sharded,
+                            np.concatenate([p[1] for p in Pk], 1), 1)
+            pks = [batch_lib._compose_pk([s[d] for s in stacked], PBk[d])
+                   for d in range(len(R))]
+            pk_actives = _put_host(sharded,
+                                   np.concatenate([p[2] for p in Pk], 1), 1)
+        if stats is not None:
+            stats.setdefault("signatures", set()).add(
+                ("svs-sharded", key, S, Bq, J, Jb))
+        batch_lib._PROGRAMS.add(("svs", key, R[0].shape[0], J, Jb, Jp))
+    with source.span(timings, "batch.dispatch"):
+        out = [batch_lib._svs_program(R[d], F[d], active[d], pks[d],
+                                      pk_actives[d], W[d], mode, rows)
                for d in range(len(R))]
-        pk_actives = _put_host(sharded,
-                               np.concatenate([p[2] for p in Pk], 1), 1)
-    if stats is not None:
-        stats.setdefault("signatures", set()).add(
-            ("svs-sharded", key, S, Bq, J, Jb))
-    batch_lib._PROGRAMS.add(("svs", key, R[0].shape[0], J, Jb, Jp))
-    t1 = time.perf_counter()
-    out = [batch_lib._svs_program(R[d], F[d], active[d], pks[d],
-                                  pk_actives[d], W[d], mode, rows)
-           for d in range(len(R))]
-    if timings is not None:
-        timings.assemble += t1 - t0
-        timings.dispatch += time.perf_counter() - t1
     return _flat_items(per_shard, Bq), out
 
 
 def _launch_bitmap_sharded(sharded: ShardedIndex, key, per_shard: list,
                            stats: dict | None, timings=None):
-    t0 = time.perf_counter()
-    S = sharded.n_shards
-    all_items = [it for sub in per_shard for it in sub]
-    Bq = batch_lib._bucket_rows(max(len(sub) for sub in per_shard))
-    J = (key.fused[0] if key.fused else
-         max((batch_lib._n_bitmaps(it) for it in all_items), default=1))
-    words = _glue(sharded, [
-        batch_lib._assemble_bitmap(key, per_shard[sid], sharded.pools[sid],
-                                   bp=Bq, j=J)[0]
-        for sid in range(S)], axis=0)                    # (S·Bq, J, W)
-    if stats is not None:
-        stats.setdefault("signatures", set()).add(
-            ("bm-sharded", key, S, Bq, J))
-    batch_lib._PROGRAMS.add(("bm", key, words[0].shape[0], J, 0, 0))
-    t1 = time.perf_counter()
-    out = [batch_lib._bitmap_and_program(w) for w in words]
-    if timings is not None:
-        timings.assemble += t1 - t0
-        timings.dispatch += time.perf_counter() - t1
+    with source.span(timings, "batch.assemble"):
+        S = sharded.n_shards
+        all_items = [it for sub in per_shard for it in sub]
+        Bq = batch_lib._bucket_rows(max(len(sub) for sub in per_shard))
+        J = (key.fused[0] if key.fused else
+             max((batch_lib._n_bitmaps(it) for it in all_items), default=1))
+        words = _glue(sharded, [
+            batch_lib._assemble_bitmap(key, per_shard[sid],
+                                       sharded.pools[sid], bp=Bq, j=J)[0]
+            for sid in range(S)], axis=0)                # (S·Bq, J, W)
+        if stats is not None:
+            stats.setdefault("signatures", set()).add(
+                ("bm-sharded", key, S, Bq, J))
+        batch_lib._PROGRAMS.add(("bm", key, words[0].shape[0], J, 0, 0))
+    with source.span(timings, "batch.dispatch"):
+        out = [batch_lib._bitmap_and_program(w) for w in words]
     return _flat_items(per_shard, Bq), out
 
 
@@ -274,7 +272,7 @@ def launch_groups_sharded(sharded: ShardedIndex, groups, *, n_queries: int,
                                + batch_lib._compile_count() - c0)
     return batch_lib.PendingBatch(n_queries=n_queries,
                                   max_results=max_results,
-                                  launched=launched)
+                                  launched=launched, timings=timings)
 
 
 def execute_sharded(sharded: ShardedIndex, queries: list, *,

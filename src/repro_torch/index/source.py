@@ -27,11 +27,19 @@ search, and a copy off the card per seed would wait for every batch already
 queued on the stream.  A pool miss decodes on the card and takes that host
 copy once.  Bitmap and layout rows keep the port's int32 bit patterns (the
 bitmap all-ones row is -1).
+
+Accounting for the query paths: ``_bump`` adds to a counter of the
+caller's ``stats`` dict, and ``span`` times a stage into the caller's
+``stats`` or ``pipeline.StageTimings`` and, under a torch profiler, marks
+it as a ``repro_torch.<name>`` range.  Neither does anything without a
+carrier (nor ``span`` without a profiler).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -281,6 +289,62 @@ def bitmap_host(tp) -> np.ndarray:
 def _bump(stats, key, by=1):
     if stats is not None:
         stats[key] = stats.get(key, 0) + by
+
+
+SPAN_PREFIX = "repro_torch."
+
+
+class _Span:
+    """An open span (see ``span``)."""
+    __slots__ = ("carrier", "name", "rf", "t0")
+
+    def __init__(self, carrier, name: str, profiling: bool):
+        self.carrier, self.name = carrier, name
+        self.rf = (torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+                   if profiling else None)
+
+    def __enter__(self):
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.carrier is not None:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        c = self.carrier
+        if c is not None:
+            dt = time.perf_counter() - self.t0
+            if isinstance(c, dict):
+                s, n = c.setdefault("span_s", {}), c.setdefault("span_n", {})
+                s[self.name] = s.get(self.name, 0.0) + dt
+                n[self.name] = n.get(self.name, 0) + 1
+            else:
+                field = self.name.rsplit(".", 1)[1]
+                setattr(c, field, getattr(c, field) + dt)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(carrier, name: str):
+    """A timed span of the query paths, as a context manager.  ``carrier``
+    takes its seconds: a ``stats`` dict, under ``stats["span_s"][name]``
+    with the count of entries in ``stats["span_n"][name]``, or an object
+    with a field named by the last part of ``name`` (``pipeline.StageTimings``:
+    ``"batch.wait"`` adds to ``.wait``).  While a torch profiler runs, the
+    span is also a range named ``repro_torch.<name>`` on the profiler's
+    clock, beside the device's events: torch's ``_RecordFunctionFast``, a
+    host event with no mirror on the device's timeline, which costs the
+    host a seventh of a ``record_function``.  With no carrier and no
+    profiler it is off: it reads no clock and calls nothing of the
+    profiler."""
+    profiling = torch.autograd.profiler._is_profiler_enabled
+    if carrier is None and not profiling:
+        return _OFF
+    return _Span(carrier, name, profiling)
 
 
 # --------------------------------------------------------------------------

@@ -112,7 +112,7 @@ def test_batched_respects_max_group_size(small_corpus):
                       "fastpfor-d1", 16, 2)
     stats = _compare(ref, port, small_corpus.queries, max_group_size=1,
                      fuse=False)
-    assert stats["n_programs"] == stats["n_items"]
+    assert stats["n_dispatches"] == stats["n_items"]
 
 
 def test_batched_matches_reference_pallas_interpret(small_corpus):
