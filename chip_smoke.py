@@ -71,13 +71,15 @@ Phases, each fatal on failure, each timed:
          a crash at the 3000th WAL add, ``recover``, tombstones, a merge
          and a second recovery (times and bytes on disk);
      every answer is checked against numpy brute force (and the batched
-     ones against the sequential ones), and the launch counts of K1–K5 and
-     K7 are checked; then one more default pass of each B=16 build and
+     ones against the sequential ones), and the launch counts of K1–K5,
+     K7 and ``compact_rows`` (each build's default batched pass) are
+     checked; then one more default pass of each B=16 build and
      each path under torch.profiler (device idle share); then the pack
      pass: the deltas of the corpus's longest lists packed on the card
      through ``ops.pack_blocks`` (K6), held against the host encoder's
      words and unpacked back through K1;
-  4. each kernel K1–K7 timed at the largest shape the main path gave it
+  4. each kernel K1–K7 and ``compact_rows`` (the svs programs' last
+     launch) timed at the largest shape the main path gave it
      (``repro_torch/launch/kernel_times.py``): ``ms`` back to back with
      CUDA events, ``graph_ms`` replayed from a CUDA graph (the device
      alone), ``host_us`` the host's time a call at a one-block shape,
@@ -85,9 +87,10 @@ Phases, each fatal on failure, each timed:
      function (back to back and in a graph; for K2 also the four-op chain
      searchsorted, gather, ==, != SENTINEL, and the valid lanes of r and
      f), and its bound (bytes over 3.35 TB/s, or 32-bit operations over 67
-     T/s, the larger); K1, K3, K5 and K7 also at the largest call of their
-     most frequent size, with their calls by size (K, or C for K3 and K5,
-     to the next power of two); with
+     T/s, the larger); K1, K3, K5, K7 and ``compact_rows`` also at the
+     largest call of their most frequent size, with their calls by size
+     (K, C for K3 and K5, M for ``compact_rows``, to the next power of
+     two), ``compact_rows`` also beside the tail it replaced; with
      ``--save-operands DIR`` every timed kernel's operands, and one tile of
      K8's, go to DIR/operands.pt, for ``kernel_times.py`` to time another
      tree's kernels on; then the index is freed;
@@ -293,6 +296,8 @@ REPLACES = {
                           "src/repro/kernels/svb_decode.py:112"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:104"),
+    # no TPU source: the reference extracts each M-wide row on the host
+    "compact_rows": ("src/repro_torch/kernels/csrc/compact_rows.cu", None),
 }
 # phase 5: the served LM (gemma-7b as registered) and its request shape
 LM_ARCH = "gemma-7b"
@@ -1151,6 +1156,36 @@ class Recorder:
         setattr(self.module, self.name, self.inner)
 
 
+def main_path_recorders() -> list:
+    """Phase 3's recorders of K1–K5, K7 and compact_rows, each wrapping its
+    kernel until ``restore``."""
+    from repro_torch.kernels import (bitunpack, compact_rows,
+                                     intersect_gallop, megakernel, svb_decode)
+    return [
+        Recorder(bitunpack, "unpack_blocks", lambda *a, **k: a[2].shape[0],
+                 bucket=lambda *a, **k: 1 << max(a[2].shape[0] - 1, 0)
+                 .bit_length()),
+        Recorder(intersect_gallop, "gallop_tiles",
+                 lambda r, f: r.shape[0] * max((f.shape[0] - 1).bit_length(), 1)),
+        Recorder(intersect_gallop, "packed_gallop_batched",
+                 lambda *a, **k: a[5].shape[1] * a[0].shape[1],
+                 bucket=lambda *a, **k: a[5].shape[1], by="C"),
+        Recorder(megakernel, "decoded_fold_batched",
+                 lambda r, v, f, a: f.shape[0] * r.numel()
+                 * max((f.shape[2] - 1).bit_length(), 1)),
+        Recorder(megakernel, "packed_fold_batched",
+                 lambda *a, **k: a[6].numel(),
+                 bucket=lambda *a, **k: a[6].shape[2], by="C"),
+        Recorder(svb_decode, "unpack_svb_blocks",
+                 lambda *a, **k: a[0].numel(),
+                 bucket=lambda *a, **k: 1 << max(a[0].shape[0] - 1, 0)
+                 .bit_length()),
+        Recorder(compact_rows, "compact_rows", lambda r, v, c: r.numel(),
+                 bucket=lambda r, v, c: 1 << max(r.shape[1] - 1, 0)
+                 .bit_length(), by="M"),
+    ]
+
+
 def _check_answers(what, results, truth, corpus) -> None:
     for q, res, want in zip(corpus.queries, results, truth):
         if res.count != len(want) or not np.array_equal(
@@ -1811,6 +1846,11 @@ def run_main_path(dev, corpus, truth) -> dict:
     if sum(resident[("fastpfor-d1", "B0")][f"depth {d}"]
            ["packed_fold_batched"] for d in DEPTHS) == 0:
         raise AssertionError("K5 never ran in fastpfor-d1/B0 pipelined")
+    for codec, wname, _, _ in CELLS:
+        if per_regime[(codec, wname, "default", "batched")][
+                "compact_rows"] == 0:
+            raise AssertionError(f"compact_rows never ran in {codec}/{wname}"
+                                 f"/default/batched")
     if sum(v["unpack_blocks"] for k, v in per_regime.items()
            if k[0] == "bp-d1") == 0:
         raise AssertionError("K1 never ran in the bp-d1 build")
@@ -3648,10 +3688,10 @@ def phase_done(k: int, t0: float) -> float:
 
 def time_kernels(recorders, launches: dict, save_dir=None) -> list:
     """Phase 4: each recorded kernel timed at its largest main-path call
-    (K1, K3, K5 and K7 also at the largest call of their most frequent
-    size, with their calls by size), K2b on 8 copies of K2a's row; each
-    must equal its plain version there.  Returns
-    the ``kernels`` records; with ``save_dir`` also saves every recorded
+    (K1, K3, K5, K7 and compact_rows also at the largest call of their
+    most frequent size, with their calls by size), K2b on 8 copies of
+    K2a's row; each must equal its plain version there.  Returns the
+    ``kernels`` records; with ``save_dir`` also saves every recorded
     kernel's operands and one tile of K8's."""
     rows, saved = [], {}
     for rec in recorders:
@@ -3768,8 +3808,7 @@ def main(argv=None) -> int:
         f"{name}, compute capability {torch.cuda.get_device_capability(0)}")
     from repro_torch.core import bitpack
     from repro_torch.index import corpus as corpus_lib, engine
-    from repro_torch.kernels import (_build, bitpack_pack, bitunpack,
-                                     intersect_gallop, megakernel, svb_decode)
+    from repro_torch.kernels import _build, bitpack_pack
     from repro_torch.launch import serve
 
     t_phase = time.perf_counter()
@@ -3833,26 +3872,7 @@ def main(argv=None) -> int:
     log(index_resources())
     t_phase = phase_done(2, t_phase)
 
-    recorders = [
-        Recorder(bitunpack, "unpack_blocks", lambda *a, **k: a[2].shape[0],
-                 bucket=lambda *a, **k: 1 << max(a[2].shape[0] - 1, 0)
-                 .bit_length()),
-        Recorder(intersect_gallop, "gallop_tiles",
-                 lambda r, f: r.shape[0] * max((f.shape[0] - 1).bit_length(), 1)),
-        Recorder(intersect_gallop, "packed_gallop_batched",
-                 lambda *a, **k: a[5].shape[1] * a[0].shape[1],
-                 bucket=lambda *a, **k: a[5].shape[1], by="C"),
-        Recorder(megakernel, "decoded_fold_batched",
-                 lambda r, v, f, a: f.shape[0] * r.numel()
-                 * max((f.shape[2] - 1).bit_length(), 1)),
-        Recorder(megakernel, "packed_fold_batched",
-                 lambda *a, **k: a[6].numel(),
-                 bucket=lambda *a, **k: a[6].shape[2], by="C"),
-        Recorder(svb_decode, "unpack_svb_blocks",
-                 lambda *a, **k: a[0].numel(),
-                 bucket=lambda *a, **k: 1 << max(a[0].shape[0] - 1, 0)
-                 .bit_length()),
-    ]
+    recorders = main_path_recorders()
     torch.cuda.reset_peak_memory_stats()
     main_path = run_main_path(dev, corpus, truth)
     for rec in recorders:

@@ -29,13 +29,19 @@ Port of ``src/repro/index/batch.py`` with the reference's
      pinned memory without waiting for it.  The program ANDs K4 (decoded
      folds, ``ops.intersect_fold_batch``), K5 (packed folds,
      ``ops.intersect_packed_fold``) and the bitmap probes into one validity
-     mask over the seed row; all-bitmap items AND their words and popcount
+     mask over the seed row, and ``ops.compact_rows`` moves each row's
+     survivors to the front of a row of min(M, max_results) columns, with
+     the full count in the last (the reference leaves the extraction of the
+     M-wide row to the host); all-bitmap items AND their words and popcount
      each row.  Right after its program, each chunk's result starts its
      copy into pinned host memory and records a CUDA event: nothing in
      ``schedule`` or ``launch_groups`` waits for the card.
-  4. **Aggregate.** ``collect_batch`` waits for each chunk's event alone
-     and re-assembles per-query results in part order, byte-identical to
-     ``engine.query``; shard-pad slots (None) are skipped.
+  4. **Aggregate.** ``collect_batch`` waits for each chunk's event alone,
+     reads each svs row's prefix of survivors (each item keeps its first
+     min(count, max_results), so the concatenation cut to ``max_results``
+     is the reference's), and re-assembles per-query results in part order,
+     byte-identical to ``engine.query``; shard-pad slots (None) are
+     skipped.
 
 Invariants, as in the reference: a ``GroupKey`` describes shapes only
 (residency, arenas and sharding never change one); padding (SENTINEL rows,
@@ -263,11 +269,12 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
 # --------------------------------------------------------------------------
 
 def _svs_program(r, folds, fold_active, pk, pk_active, words, mode: str,
-                 block_rows: int) -> torch.Tensor:
+                 block_rows: int, max_results: int) -> torch.Tensor:
     """Decoded folds (K4) → packed folds (K5) → bitmap probes, each ANDed
-    into one validity mask over the seed rows ``r`` (Bp, M).  Returns
-    (Bp, M + 1) int32: each row's surviving values (SENTINEL elsewhere,
-    sorted but not compacted) and, in the last column, their count."""
+    into one validity mask over the seed rows ``r`` (Bp, M), then
+    compacted (``ops.compact_rows``).  Returns (Bp, C + 1) int32, C =
+    min(M, max_results): each row's first min(count, C) surviving values,
+    in order, SENTINEL after them, and in the last column the full count."""
     valid = r != SENT
     valid = ops.intersect_fold_batch(r, valid, folds, fold_active)
     if pk is not None:
@@ -276,8 +283,7 @@ def _svs_program(r, folds, fold_active, pk, pk_active, words, mode: str,
     if words is not None:
         for w in words:
             valid = bm.probe_batched(w, r, valid)
-    counts = valid.sum(-1, dtype=torch.int32)
-    return torch.cat([torch.where(valid, r, SENT), counts[:, None]], 1)
+    return ops.compact_rows(r, valid, max_results)
 
 
 def _bitmap_and_program(words) -> torch.Tensor:
@@ -500,7 +506,8 @@ def _svs_launch_args(key: GroupKey, items: list, pkparts, stats):
 
 
 def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
-                      stats: dict | None, timings=None) -> torch.Tensor:
+                      stats: dict | None, timings, max_results: int
+                      ) -> torch.Tensor:
     """Assemble and launch one svs chunk; ``timings`` (a
     ``pipeline.StageTimings``) takes the assembly and the launch apart."""
     with source.span(timings, "batch.assemble"):
@@ -517,7 +524,8 @@ def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
             stats.setdefault("signatures", set()).add(("svs", key, Bp, J, Jb))
         _PROGRAMS.add(("svs", key, Bp, J, Jb, Jp))
     with source.span(timings, "batch.dispatch"):
-        return _svs_program(R, F, active, pk, pk_active, W, mode, rows)
+        return _svs_program(R, F, active, pk, pk_active, W, mode, rows,
+                            max_results)
 
 
 def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
@@ -722,11 +730,12 @@ class PendingBatch:
 
 
 def copy_to_host(res: torch.Tensor) -> tuple:
-    """Start the copy of a result to the host.  On the card: into pinned
-    memory from torch's caching host allocator, without waiting, followed
-    by a CUDA event that ``collect_batch`` waits on alone; the pinned
-    tensor is held until then.  On the CPU: the tensor itself, and no
-    event."""
+    """Start the copy of a result (compacted svs rows of min(M,
+    max_results) + 1 columns, or all-bitmap rows of W + 1) to the host.  On
+    the card: into pinned memory from torch's caching host allocator,
+    without waiting, followed by a CUDA event that ``collect_batch`` waits
+    on alone; the pinned tensor is held until then.  On the CPU: the tensor
+    itself, and no event."""
     if res.device.type != "cuda":
         return res, None
     with torch.cuda.device(res.device):
@@ -744,8 +753,10 @@ def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
                   stats: dict | None = None, timings=None) -> PendingBatch:
     """Launch one device program per (possibly fused) group chunk, each
     followed by its result's copy to the host, and return without waiting
-    for the card.  ``timings`` (a ``pipeline.StageTimings``) takes operand
-    assembly and the launches apart."""
+    for the card.  Each svs row keeps its first ``max_results`` survivors.
+    ``timings`` (a ``pipeline.StageTimings``) takes operand assembly and
+    the launches apart; ``stats["result_bytes"]`` adds the bytes of the
+    result copies."""
     launched = []
     n_dispatches = 0
     c0 = _compile_count() if stats is not None else 0
@@ -753,10 +764,13 @@ def launch_groups(groups: dict[GroupKey, list[_Item]], *, n_queries: int,
         step = _chunk_size(key, items, max_group_size)
         for lo in range(0, len(items), step):
             chunk = items[lo: lo + step]
-            launch = (_launch_bitmap_group if key.kind == "bitmap"
-                      else _launch_svs_group)
-            res = launch(key, chunk, pool, stats, timings)
+            if key.kind == "bitmap":
+                res = _launch_bitmap_group(key, chunk, pool, stats, timings)
+            else:
+                res = _launch_svs_group(key, chunk, pool, stats, timings,
+                                        max_results)
             launched.append((key, chunk, [copy_to_host(res)]))
+            source._bump(stats, "result_bytes", res.nbytes)
             n_dispatches += 1
     accumulate_launch_stats(stats, groups, n_dispatches)
     if stats is not None:
@@ -778,6 +792,8 @@ def accumulate_launch_stats(stats: dict | None, groups, n_dispatches: int):
 def collect_batch(pending: PendingBatch) -> list[QueryResult]:
     """Wait for each chunk's result copy (its event alone) and re-assemble
     per-query results in part order — byte-identical to ``engine.query``.
+    An svs row is read as its prefix of min(count, C) survivors (C + 1
+    columns: ``_svs_program``), an all-bitmap row by extracting its words.
     Shard-pad slots (None) are skipped.  It launches nothing and reads
     only pinned host memory, so it may run on another thread than the
     launches (the live server's collector); an event's wait does not
@@ -803,9 +819,8 @@ def collect_batch(pending: PendingBatch) -> list[QueryResult]:
                 counts[it.qi] += cnt
                 if not cnt:
                     continue
-                row = host[b, :-1]
-                docs = (bm.extract_np(row) if key.kind == "bitmap"
-                        else row[row != SENT])
+                docs = (bm.extract_np(host[b, :-1]) if key.kind == "bitmap"
+                        else host[b, : min(cnt, host.shape[1] - 1)])
                 per_query[it.qi].append((it.pi, docs.astype(np.int64)
                                          + it.doc_lo))
     out = []
@@ -837,7 +852,7 @@ def execute_batch(index: HybridIndex, queries: list[list[int]], *,
     plan: a FusionPlan carrying sticky family ceilings across calls.
     stats: optional dict of scheduler counters (n_groups,
     n_sched_groups/n_fused_groups, n_dispatches, n_compiles, n_items,
-    decoded_ints, skip_folds, resident_hits, signatures)."""
+    decoded_ints, skip_folds, resident_hits, result_bytes, signatures)."""
     groups = schedule(index, queries, cache=cache, skip=skip, stats=stats,
                       pool=pool)
     if fuse:

@@ -29,8 +29,9 @@ return in submission order.
     dispatch  program launches and result-copy enqueues
     block     ``collect_batch`` whole: wait + collect
     wait      its waits on the card (each chunk's event)
-    collect   its host work: the result views, bitmap extraction, the
-              per-row loop and the per-query concatenation
+    collect   its host work: each svs row's prefix of compacted survivors,
+              bitmap extraction, the per-row loop and the per-query
+              concatenation
 
 Each is a ``source.span`` (``pipeline.stage``, ``batch.assemble``,
 ``batch.dispatch``, ``pipeline.block``, ``batch.wait``,

@@ -164,7 +164,7 @@ def _flat_items(per_shard: list, Bq: int) -> list:
 
 
 def _launch_svs_sharded(sharded: ShardedIndex, key, per_shard: list,
-                        stats: dict | None, timings=None):
+                        stats: dict | None, timings, max_results: int):
     """One program covering all shards' items of one group chunk: rows laid
     out shard-contiguously ((shard, slot) flattened), operands assembled
     per shard from its pool on its device and glued along the row axis.
@@ -211,7 +211,8 @@ def _launch_svs_sharded(sharded: ShardedIndex, key, per_shard: list,
         batch_lib._PROGRAMS.add(("svs", key, R[0].shape[0], J, Jb, Jp))
     with source.span(timings, "batch.dispatch"):
         out = [batch_lib._svs_program(R[d], F[d], active[d], pks[d],
-                                      pk_actives[d], W[d], mode, rows)
+                                      pk_actives[d], W[d], mode, rows,
+                                      max_results)
                for d in range(len(R))]
     return _flat_items(per_shard, Bq), out
 
@@ -246,7 +247,8 @@ def launch_groups_sharded(sharded: ShardedIndex, groups, *, n_queries: int,
     each result followed by its copy to the host, without waiting for the
     card (the fan-out half; ``batch.collect_batch`` is the concatenate
     half: item part ordinals order per-query results as the single-device
-    engine does).  ``timings`` as in ``batch.launch_groups``."""
+    engine does).  ``timings``, ``max_results`` and
+    ``stats["result_bytes"]`` as in ``batch.launch_groups``."""
     launched = []
     n_dispatches = 0
     c0 = batch_lib._compile_count() if stats is not None else 0
@@ -258,13 +260,17 @@ def launch_groups_sharded(sharded: ShardedIndex, groups, *, n_queries: int,
         # so chunk by the widest shard's slice
         step = batch_lib._chunk_size(key, items, max_group_size)
         width = max(len(sub) for sub in per)
-        launch = (_launch_bitmap_sharded if key.kind == "bitmap"
-                  else _launch_svs_sharded)
         for lo in range(0, max(width, 1), step):
-            flat, out = launch(sharded, key, [s[lo: lo + step] for s in per],
-                               stats, timings)
+            chunk = [s[lo: lo + step] for s in per]
+            if key.kind == "bitmap":
+                flat, out = _launch_bitmap_sharded(sharded, key, chunk,
+                                                   stats, timings)
+            else:
+                flat, out = _launch_svs_sharded(sharded, key, chunk, stats,
+                                                timings, max_results)
             launched.append((key, flat,
                              [batch_lib.copy_to_host(r) for r in out]))
+            source._bump(stats, "result_bytes", sum(r.nbytes for r in out))
             n_dispatches += 1
     batch_lib.accumulate_launch_stats(stats, groups, n_dispatches)
     if stats is not None:

@@ -43,7 +43,8 @@ LAUNCHES: dict[str, int] = {"unpack_blocks": 0, "gallop_tiles": 0,
                             "packed_fold_batched": 0,
                             "pack_blocks_padded": 0,
                             "unpack_svb_blocks": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "compact_rows": 0}
 BUILDS = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -86,6 +87,8 @@ SIGNATURES = {
     "repro_flash_decode": ("flash_attention",
                            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P]),
+    # r, valid, B, M, C, out, counts, stream
+    "repro_compact_rows": ("compact_rows", [_P, _P, _I, _I, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -27,6 +27,7 @@ from repro_torch.core import deltas as core_deltas
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitpack_pack as _bitpack_pack
 from repro_torch.kernels import bitunpack as _bitunpack
+from repro_torch.kernels import compact_rows as _compact_rows
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import intersect_gallop as _intersect_gallop
 from repro_torch.kernels import megakernel as _megakernel
@@ -172,3 +173,15 @@ def intersect_packed_fold(r, valid, pk, pk_active, mode: str,
     return _megakernel.packed_fold_batched(
         r, valid, words, widths, offsets, maxes, blk_ids, exc_pos, exc_add,
         pk_active, mode=mode, block_rows=block_rows)
+
+
+# --------------------------------------------------------------------------
+# result compaction
+# --------------------------------------------------------------------------
+
+def compact_rows(r, valid, max_results: int):
+    """r (B, M) int32 and valid (B, M) bool → (B, C + 1) int32, C =
+    min(M, max_results): each row's first min(count, C) survivors in order,
+    SENTINEL after them, the full count in column C (see
+    kernels/compact_rows.py)."""
+    return _compact_rows.compact_rows(r, valid, max_results)

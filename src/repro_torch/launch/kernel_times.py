@@ -1,7 +1,7 @@
 """Kernel times on the card, through the wrappers a user calls.
 
-For each kernel K1–K7 at an operand set (the main path's, as
-``chip_smoke.py`` records them), and K8 at one tile:
+For each kernel K1–K7 and ``compact_rows`` at an operand set (the main
+path's, as ``chip_smoke.py`` records them), and K8 at one tile:
 
   ms         CUDA events around 30 back-to-back wrapper calls: host and
              device together, as a caller that does not batch launches sees
@@ -412,6 +412,39 @@ def time_k7(args, kwargs) -> dict:
                      f"mode {mode}"}
 
 
+def time_compact_rows(args, kwargs) -> dict:
+    """``compact_rows``, the batched svs programs' last launch, beside the
+    tail it replaced (``valid.sum``, ``torch.where``, ``torch.cat``: the
+    M-wide row, not compacted, so not the same function)."""
+    from repro_torch.kernels import compact_rows as kc
+    r, valid, max_results = args
+    kern = lambda: kc.compact_rows(r, valid, max_results)
+    plain = lambda: kc.compact_rows_plain(r, valid, max_results)
+    tail = lambda: torch.cat([torch.where(valid, r, SENT),
+                              valid.sum(-1, dtype=torch.int32)[:, None]], 1)
+    w = min(r.shape[1], kc.TILE)
+    one = (_one(r, slice(0, 1), slice(0, w)),
+           _one(valid, slice(0, 1), slice(0, w)), max_results)
+    B, M = r.shape
+    C = min(M, max_results)
+    # valid once, r's 16-byte groups that hold a survivor, the output row;
+    # per slot a test and a count.  ``bound_5b_ms``: r read whole (5 B a
+    # slot), as the kernel reads it
+    groups = int(torch.nn.functional.pad(valid, (0, -M % 4))
+                 .reshape(B, -1, 4).any(-1).sum())
+    row = 4 * B * (C + 1)
+    b_ms, b_by = bound(B * M + 16 * groups + row, 2 * B * M)
+    return {"max_abs_err": max_abs_err(kern(), plain()), "ms": cuda_ms(kern),
+            "graph_ms": graph_ms(kern),
+            "host_us": host_us(lambda: kc.compact_rows(*one)),
+            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_5b_ms": bound(5 * B * M + row, 0)[0],
+            "library_ms": None, "library_graph_ms": None,
+            "old_tail_graph_ms": graph_ms(tail),
+            "old_tail_host_us": host_us(tail),
+            "shape": f"Bp={B}, M={M}, C={C}, {int(valid.sum())} survivors"}
+
+
 def time_k8_launch(args, kwargs) -> dict:
     """K8 at one tile (``host_us``'s shape in ``chip_smoke.time_k8``): the
     launch path's host time a call, and the call back to back and in a
@@ -431,7 +464,8 @@ def time_k8_launch(args, kwargs) -> dict:
 TIMERS = {"unpack_blocks": time_k1, "gallop_tiles": time_k2,
           "packed_gallop_batched": time_k3, "decoded_fold_batched": time_k4,
           "packed_fold_batched": time_k5, "pack_blocks_padded": time_k6,
-          "unpack_svb_blocks": time_k7, "flash_attention": time_k8_launch}
+          "unpack_svb_blocks": time_k7, "flash_attention": time_k8_launch,
+          "compact_rows": time_compact_rows}
 
 
 def time_saved(path: str) -> dict:

@@ -493,6 +493,35 @@ def test_decoded_fold_matches_plain(cuda, B, M, N, J):
     assert torch.equal(empty.cpu(), cpu[1])
 
 
+@pytest.mark.parametrize("cap", ["M", 1 << 16])
+@pytest.mark.parametrize("M", [128, 1001, 1 << 16, 1 << 20])
+@pytest.mark.parametrize("B", [1, 3, 13])
+def test_compact_rows_matches_plain(cuda, B, M, cap):
+    """compact_rows at survivor densities 0, 10**-3, 0.5 and 1 against its
+    plain version on the same operands, one launch each and no host sync
+    (M = 1001 takes the kernel's unaligned loads)."""
+    from repro_torch.kernels import compact_rows as kc
+    cap = M if cap == "M" else cap
+    g = torch.Generator(device=cuda).manual_seed(B * M)
+    r = torch.sort(torch.randint(0, 1 << 30, (B, M), device=cuda,
+                                 dtype=torch.int32, generator=g), 1)[0]
+    r[B - 1, M // 2:] = SENT                 # a SENTINEL tail, as seed rows
+    for density in (0.0, 1e-3, 0.5, 1.0):
+        valid = torch.rand((B, M), device=cuda, generator=g) < density
+        valid &= r != SENT
+        before = ops.launches()["compact_rows"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ops.compact_rows(r, valid, cap)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = kc.compact_rows_plain(r, valid, cap)
+        torch.cuda.synchronize()
+        assert ops.launches()["compact_rows"] == before + 1
+        assert got.shape == (B, min(M, cap) + 1)
+        assert torch.equal(got, want), density
+
+
 @pytest.mark.parametrize("mode", ["d1", "d2", "d4", "dm", "dv"])
 @pytest.mark.parametrize("codec", ["bp", "fastpfor"])
 def test_packed_fold_matches_plain(cuda, mode, codec):
@@ -799,6 +828,7 @@ def test_pool_batch_launches_without_a_host_sync(cuda):
         launched = ops.launches()
         assert (launched["decoded_fold_batched"]
                 + launched["packed_fold_batched"]) > 0, name
+        assert launched["compact_rows"] > 0, name
         _same(batch.collect_batch(pending),
               batch.execute_batch(cpu, queries))
 
