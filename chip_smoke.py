@@ -1389,6 +1389,7 @@ def in_turns(idx, what, pool, corpus, truth, seq) -> None:
         return collect(pending)
 
     builds, turns = pool.arena_builds(), {1: [], 2: []}
+    grows, rows = pool.arena_grows(), pool.arena_stats()["arena_rows"]
     batch_lib.collect_batch = collect_timed
     try:
         for d in (1, 2, 2, 1, 1, 2, 2, 1):
@@ -1412,9 +1413,11 @@ def in_turns(idx, what, pool, corpus, truth, seq) -> None:
                 f"{tm.dispatch * 1e3:.2f} / {tm.block * 1e3:.2f} "
                 f"({w * 1e3:.2f} + {(tm.block - w) * 1e3:.2f})"
                 for _, tm, w in runs))
-    if pool.stats()["evicted_lists"] == 0 and pool.arena_builds() != builds:
-        raise AssertionError(f"{what}: a warm pipelined pass rebuilt an "
-                             f"arena")
+    if pool.stats()["evicted_lists"] == 0 and (
+            pool.arena_builds(), pool.arena_grows(),
+            pool.arena_stats()["arena_rows"]) != (builds, grows, rows):
+        raise AssertionError(f"{what}: a warm pipelined pass uploaded, "
+                             f"grew or wrote rows into an arena")
 
 
 def _served_equal(what, results, queries, want, truth) -> int:

@@ -89,6 +89,15 @@ def skip_capable(payload) -> bool:
                for a in ("flat_words", "widths", "offsets", "maxes"))
 
 
+def pad_fills(T: int, last_max) -> tuple:
+    """The pad value of each of a layout's six operands, in K5's order
+    (words, widths, offsets, maxes, exc_pos, exc_add), for a list of ``T``
+    word rows whose last block's max is ``last_max``: zero words and
+    widths, offsets T − 1, maxes the last block's max (the edge pad keeps
+    maxes monotone), exception positions -1 and additions 0."""
+    return 0, 0, max(T - 1, 0), last_max, -1, 0
+
+
 def layout_np(payload, k_pad: int, t_pad: int, e_pad: int) -> PackedLayout:
     """Project a skip-capable payload onto the batch-uniform layout."""
     widths = payload.widths.cpu().numpy()
@@ -98,14 +107,15 @@ def layout_np(payload, k_pad: int, t_pad: int, e_pad: int) -> PackedLayout:
     K, T = widths.shape[0], words.shape[0]
     if K > k_pad or T > t_pad:
         raise ValueError(f"pads too small: K={K} > {k_pad} or T={T} > {t_pad}")
-    w = np.zeros(k_pad, np.int32)
+    f_words, f_widths, f_offsets, f_maxes, f_pos, f_add = pad_fills(
+        T, maxes[-1] if K else 0)
+    w = np.full(k_pad, f_widths, np.int32)
     w[:K] = widths
-    o = np.full(k_pad, max(T - 1, 0), np.int32)
+    o = np.full(k_pad, f_offsets, np.int32)
     o[:K] = offsets
-    mx = np.zeros(k_pad, np.uint32)
+    mx = np.full(k_pad, f_maxes, np.uint32)
     mx[:K] = maxes
-    mx[K:] = maxes[-1] if K else 0          # edge pad keeps maxes monotone
-    fw = np.zeros((t_pad, LANES), np.uint32)
+    fw = np.full((t_pad, LANES), f_words, np.uint32)
     fw[:T] = words
     exc_pos = getattr(payload, "exc_pos", None)
     ep_src = (exc_pos.cpu().numpy() if exc_pos is not None
@@ -115,9 +125,9 @@ def layout_np(payload, k_pad: int, t_pad: int, e_pad: int) -> PackedLayout:
     E = ep_src.shape[0]
     if E > e_pad:
         raise ValueError(f"pads too small: E={E} > {e_pad}")
-    ep = np.full(e_pad, -1, np.int32)
+    ep = np.full(e_pad, f_pos, np.int32)
     ep[:E] = ep_src
-    ea = np.zeros(e_pad, np.uint32)
+    ea = np.full(e_pad, f_add, np.uint32)
     ea[:E] = ea_src
     return PackedLayout(words=fw, widths=w, offsets=o, maxes=mx,
                         exc_pos=ep, exc_add=ea, n=payload.n,

@@ -121,7 +121,7 @@ class _Item:
                                        # the PackedSource (pool: arenas)
     bm_words: list | None = None       # no pool: J_b × (W,) bitmap rows
     bm_dev: list | None = None         # pool: J_b × (W,) resident rows
-    bm_keys: list | None = None        # pool: J_b × (pool key, host row)
+    bm_keys: list | None = None        # pool: J_b × pool key
     rsrc: object = None                # pool: the seed DecodedSource
 
 
@@ -139,15 +139,24 @@ def _n_bitmaps(it: _Item) -> int:
 
 
 def _seeds_to_host(seeds: list) -> list[np.ndarray]:
-    """The valid values of every seed: a source's host copy where it has
-    one; the rest copied to the host together, in one copy."""
-    missing = [s for s in seeds if s.vals_np is None]
-    flat = (torch.cat([s.vals[: s.n] for s in missing]).cpu().numpy()
-            if missing else None)
-    copied = iter(np.split(flat, np.cumsum([s.n for s in missing])[:-1])
-                  if missing else ())
-    return [s.vals_np[: s.n] if s.vals_np is not None else next(copied)
-            for s in seeds]
+    """The valid values of every seed: a source's host copy where it is
+    taken; the rest (no copy, or a pool entry's ``source.HostCopy`` not
+    read yet) copied to the host together, in one copy, which each
+    ``HostCopy`` keeps."""
+    keys = [id(s.vals_np) if s.vals_np is not None else id(s) for s in seeds]
+    missing = {k: s for k, s in zip(keys, seeds)
+               if not source.host_taken(s.vals_np)}
+    heads = {}
+    if missing:
+        flat = torch.cat([s.vals[: s.n]
+                          for s in missing.values()]).cpu().numpy()
+        heads = dict(zip(missing, np.split(flat, np.cumsum(
+            [s.n for s in missing.values()])[:-1])))
+        for k, s in missing.items():
+            if isinstance(s.vals_np, source.HostCopy):
+                s.vals_np.put(heads[k])
+    return [heads[k] if k in heads else s.vals_np[: s.n]
+            for k, s in zip(keys, seeds)]
 
 
 def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
@@ -162,6 +171,9 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
     codec = codec_lib.get_codec(index.codec_name)
     pool_of = (pool.for_part if hasattr(pool, "for_part")
                else (lambda pi: pool))
+    if pool is not None and stats is not None:
+        for k in source.POOL_COUNTERS:
+            stats.setdefault(k, 0)
     work = []      # per item: (qi, pi, part, pool, seed, dec, packed,
     #                            bitmaps, W)
     for qi, term_ids in enumerate(queries):
@@ -177,13 +189,14 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
             W = int(bm_pairs[0][1].payload.shape[0]) if bm_pairs else 0
             bitmaps = None
             if bm_pairs and ppool is not None:
-                # (key, host row) pairs: the arena assembler must not depend
-                # on store residency (a small pool evicts between schedule
-                # and assembly)
-                keys = [(("bm", part.uid, t), source.bitmap_host(tp))
-                        for t, tp in bm_pairs]
-                bitmaps = (keys, [ppool.stage_bitmap(k, w, dev=tp.payload)
-                                  for (k, w), (_, tp) in zip(keys, bm_pairs)])
+                # keys and the staged rows themselves: the arena assembler
+                # must not depend on store residency (a small pool evicts
+                # between schedule and assembly)
+                keys = [("bm", part.uid, t) for t, _ in bm_pairs]
+                bitmaps = (keys, [ppool.stage_bitmap(k, source.bitmap_host(tp),
+                                                     dev=tp.payload,
+                                                     stats=stats)
+                                  for k, (_, tp) in zip(keys, bm_pairs)])
             elif bm_pairs:
                 bitmaps = [tp.payload for _, tp in bm_pairs]
             if not pairs:
@@ -206,7 +219,8 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
                 # one block geometry per fold stack: keep the longest fold's
                 # (block_rows, mode) and decode the rare mismatch, uncached
                 # and unstaged (staged, it would win over the skip path);
-                # with a pool it takes its host copy, for the arenas
+                # with a pool it keeps a host copy (taken if read), so its
+                # group is gathered from the arenas as a staged list's is
                 ref = max(packed, key=lambda p: p[2].n)[2]
                 for t, tp, s in packed:
                     if (s.block_rows, s.mode) == (ref.block_rows, ref.mode):
@@ -215,7 +229,7 @@ def schedule(index: HybridIndex, queries: list[list[int]], cache=None,
                     d = source.resolve(part, t, tp, codec, cache=None,
                                        skip=False, stats=stats)
                     if ppool is not None:
-                        d.vals_np = d.vals.cpu().numpy()
+                        d.vals_np = source.HostCopy(d.vals)
                     dec.append(d)
             work.append((qi, pi, part, ppool, seed, dec, keep, bitmaps, W))
     host = iter(_seeds_to_host([w[4] for w in work if w[6]]))
@@ -329,13 +343,15 @@ def _stack_packed(key: GroupKey, items: list[_Item], Bp: int, device,
 
 
 def _stack_packed_arena(key: GroupKey, items: list[_Item], Bp: int,
-                        pool: "source.ResidentPool", jp: int | None = None):
+                        pool: "source.ResidentPool", jp: int | None = None,
+                        stats: dict | None = None):
     """Pool-mode packed stacking: each of the six layout operands is one
     gather from its ``RowArena`` at the key's pads with one (Jp·Bp,) id
     vector — slot 0 is the all-pad layout, so inactive grid positions
     decode to SENTINEL as in ``_stack_packed``.  A list's rows join the
-    arenas the first time it is gathered, from its host layout at those
-    pads.  Returns what ``_stack_packed`` returns."""
+    arenas the first time it is gathered, written on the device from its
+    payload's own arrays (``source.layout_device_rows``).  Returns what
+    ``_stack_packed`` returns."""
     k_pad, t_pad, c_pad, e_pad, _, _ = key.packed
     pads = (k_pad, t_pad, e_pad)
     Jp = (max((len(it.psrc) for it in items), default=0)
@@ -348,9 +364,9 @@ def _stack_packed_arena(key: GroupKey, items: list[_Item], Bp: int,
         for j, (src, blk) in enumerate(it.psrc):
             slot = arenas[0].slots.get(src.key)
             if slot is None:
-                rows = source.layout_rows(source.cached_layout_np(src, pads))
+                rows = source.layout_device_rows(src.payload)
                 for a, row in zip(arenas, rows):
-                    slot = a.slot(src.key, lambda r=row: r)
+                    slot = a.slot(src.key, lambda r=row: r, stats)
             idx[j, b] = slot
             PBk[j, b, : blk.shape[0]] = blk
             active[j, b] = True
@@ -364,9 +380,9 @@ def _compose_pk(stacked, PBk: torch.Tensor) -> tuple:
 
 
 def _arena_ok(items: list[_Item]) -> bool:
-    """Arena assembly needs a host copy and a pool key for every value row;
-    cache-hit sources carry neither, so groups holding one stack the pool's
-    padded rows instead."""
+    """Arena assembly takes value rows that carry a host copy (taken or
+    not) and a pool key; cache-hit sources carry no copy, so groups holding
+    one stack the pool's padded rows instead, as the reference's do."""
     for it in items:
         if it.rsrc is None or it.rsrc.vals_np is None or not it.rsrc.key:
             return False
@@ -374,15 +390,6 @@ def _arena_ok(items: list[_Item]) -> bool:
             if f.vals_np is None or not f.key:
                 return False
     return True
-
-
-def _extend(row: np.ndarray, size: int, fill: int) -> np.ndarray:
-    """``row`` extended to ``size`` with ``fill``."""
-    if row.shape[0] == size:
-        return row
-    out = np.full(size, fill, row.dtype)
-    out[: row.shape[0]] = row
-    return out
 
 
 def _extend_dev(row: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -396,15 +403,17 @@ def _extend_dev(row: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 def _assemble_svs(key: GroupKey, items: list[_Item], pool=None, *,
                   bp: int | None = None, j: int | None = None,
                   jb: int | None = None, jp: int | None = None,
-                  device=None):
+                  device=None, stats: dict | None = None):
     """The operands of one svs group chunk on the card.  Without a pool they
     are stacked from the items' device rows; with one, each is gathered
-    from the pool's arenas (or, for sources without a host copy, stacked
-    from the pool's padded rows).  Rows narrower than the key's buckets
-    extend with SENTINEL / zero-word filler, inert by the padding
-    invariant.  ``bp``/``j``/``jb``/``jp`` override the chunk-derived
-    paddings (the sharded launcher assembles uniform per-shard slices, some
-    of them empty, on ``device``); fused keys pin the arity ceilings.
+    from the pool's arenas, a row joining its arena by a device write from
+    the source's own tensor (or, for sources without a host copy, stacked
+    from the pool's padded rows); ``stats`` takes the pool's counters.
+    Rows narrower than the key's buckets extend with SENTINEL / zero-word
+    filler, inert by the padding invariant.  ``bp``/``j``/``jb``/``jp``
+    override the chunk-derived paddings (the sharded launcher assembles
+    uniform per-shard slices, some of them empty, on ``device``); fused
+    keys pin the arity ceilings.
     Returns (R, F, host active flags, packed parts or None, W or None, Bp,
     J, Jb)."""
     B = len(items)
@@ -425,16 +434,16 @@ def _assemble_svs(key: GroupKey, items: list[_Item], pool=None, *,
         fa_m = pool.fold_arena(M)
         ridx = np.zeros(Bp, np.int32)               # 0 = SENTINEL row
         for b, it in enumerate(items):
-            ridx[b] = fa_m.slot(it.rsrc.key, lambda s=it.rsrc: _extend(
-                s.vals_np, M, SENT))
+            ridx[b] = fa_m.slot(it.rsrc.key, lambda s=it.rsrc: (s.vals, SENT),
+                                stats)
         R = fa_m.gather(ridx)
         fidx = np.zeros((J, Bp), np.int32)
         if J:
             fa_n = pool.fold_arena(N)
             for b, it in enumerate(items):
                 for jj, f in enumerate(it.folds):
-                    fidx[jj, b] = fa_n.slot(f.key, lambda s=f: _extend(
-                        s.vals_np, N, SENT))
+                    fidx[jj, b] = fa_n.slot(f.key, lambda s=f: (s.vals, SENT),
+                                            stats)
                     active[jj, b] = True
             F = fa_n.gather(fidx)
         else:
@@ -443,18 +452,19 @@ def _assemble_svs(key: GroupKey, items: list[_Item], pool=None, *,
             wa = pool.bitmap_arena(Wd)
             widx = np.zeros((Jb, Bp), np.int32)     # 0 = probe identity
             for b, it in enumerate(items):
-                for jj, (bk, wnp) in enumerate(it.bm_keys or ()):
-                    widx[jj, b] = wa.slot(bk, lambda w=wnp: _extend(w, Wd, 0))
+                for jj, bk in enumerate(it.bm_keys or ()):
+                    widx[jj, b] = wa.slot(
+                        bk, lambda w=it.bm_dev[jj]: (w, 0), stats)
             W = wa.gather(widx)
     elif pool is not None:
-        R = torch.stack([pool.padded(it.rsrc, M) for it in items]
+        R = torch.stack([pool.padded(it.rsrc, M, stats) for it in items]
                         + [pool.sentinel_row(M)] * (Bp - B))
         rows = []
         for jj in range(J):
             for b in range(Bp):
                 it = items[b] if b < B else None
                 if it is not None and jj < len(it.folds):
-                    rows.append(pool.padded(it.folds[jj], N))
+                    rows.append(pool.padded(it.folds[jj], N, stats))
                     active[jj, b] = True
                 else:
                     rows.append(pool.sentinel_row(N))
@@ -486,7 +496,8 @@ def _assemble_svs(key: GroupKey, items: list[_Item], pool=None, *,
                     W[jj, b, w.shape[0]:] = 0
     pkparts = None
     if key.packed is not None:
-        pkparts = (_stack_packed_arena(key, items, Bp, pool, jp=jp)
+        pkparts = (_stack_packed_arena(key, items, Bp, pool, jp=jp,
+                                       stats=stats)
                    if pool is not None else
                    _stack_packed(key, items, Bp, device, jp=jp))
     return R, F, active, pkparts, W, Bp, J, Jb
@@ -511,7 +522,8 @@ def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
     """Assemble and launch one svs chunk; ``timings`` (a
     ``pipeline.StageTimings``) takes the assembly and the launch apart."""
     with source.span(timings, "batch.assemble"):
-        R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items, pool)
+        R, F, active, pkparts, W, Bp, J, Jb = _assemble_svs(key, items, pool,
+                                                            stats=stats)
         device = R.device
         pk = pk_active = None
         mode, rows, Jp = _svs_launch_args(key, items, pkparts, stats)
@@ -530,7 +542,7 @@ def _launch_svs_group(key: GroupKey, items: list[_Item], pool,
 
 def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
                      bp: int | None = None, j: int | None = None,
-                     device=None):
+                     device=None, stats: dict | None = None):
     """(Bp, J, W) word stack of one all-bitmap chunk on the card: real rows
     pad missing terms with all-ones (the AND identity) over their own W;
     padded rows, and every row past its own W, stay zero (popcount 0).
@@ -548,8 +560,9 @@ def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
         widx = np.full((Bp, J), source.ResidentPool.BM_ONES_SLOT, np.int32)
         widx[B:, :] = source.ResidentPool.BM_ZERO_SLOT
         for b, it in enumerate(items):
-            for jj, (bk, wnp) in enumerate(it.bm_keys):
-                widx[b, jj] = wa.slot(bk, lambda w=wnp: _extend(w, Wd, 0))
+            for jj, bk in enumerate(it.bm_keys):
+                widx[b, jj] = wa.slot(bk, lambda w=it.bm_dev[jj]: (w, 0),
+                                      stats)
         return wa.gather(widx), Bp, J
     if device is None:
         device = items[0].bm_words[0].device
@@ -565,7 +578,7 @@ def _assemble_bitmap(key: GroupKey, items: list[_Item], pool=None, *,
 def _launch_bitmap_group(key: GroupKey, items: list[_Item], pool,
                          stats: dict | None, timings=None) -> torch.Tensor:
     with source.span(timings, "batch.assemble"):
-        words, Bp, J = _assemble_bitmap(key, items, pool)
+        words, Bp, J = _assemble_bitmap(key, items, pool, stats=stats)
         if stats is not None:
             stats.setdefault("signatures", set()).add(("bm", key, Bp, J))
         _PROGRAMS.add(("bm", key, Bp, J, 0, 0))

@@ -184,7 +184,8 @@ def _launch_svs_sharded(sharded: ShardedIndex, key, per_shard: list,
         parts = [batch_lib._assemble_svs(key, per_shard[sid],
                                          sharded.pools[sid],
                                          bp=Bq, j=J, jb=Jb, jp=Jp,
-                                         device=sharded.pools[sid].device)
+                                         device=sharded.pools[sid].device,
+                                         stats=stats)
                  for sid in range(S)]
         R = _glue(sharded, [p[0] for p in parts], axis=0)    # (S·Bq, M)
         F = _glue(sharded, [p[1] for p in parts], axis=1)    # (J, S·Bq, N)
@@ -227,7 +228,8 @@ def _launch_bitmap_sharded(sharded: ShardedIndex, key, per_shard: list,
              max((batch_lib._n_bitmaps(it) for it in all_items), default=1))
         words = _glue(sharded, [
             batch_lib._assemble_bitmap(key, per_shard[sid],
-                                       sharded.pools[sid], bp=Bq, j=J)[0]
+                                       sharded.pools[sid], bp=Bq, j=J,
+                                       stats=stats)[0]
             for sid in range(S)], axis=0)                # (S·Bq, J, W)
         if stats is not None:
             stats.setdefault("signatures", set()).add(

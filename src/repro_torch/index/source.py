@@ -21,12 +21,14 @@ word rows are staged once on the pool's device, LRU-evicted against an int
 budget that counts every tensor the pool holds there (store entries, their
 pad memos, identity rows and arenas), and served to every later batch.  A
 ``RowArena`` packs same-shape rows into one device matrix so that a group's
-operand is one ``index_select`` gather.  Every entry keeps its host copy
-(``vals_np``): the scheduler reads seed values on the host for the block-max
-search, and a copy off the card per seed would wait for every batch already
-queued on the stream.  A pool miss decodes on the card and takes that host
-copy once.  Bitmap and layout rows keep the port's int32 bit patterns (the
-bitmap all-ones row is -1).
+operand is one ``index_select`` gather; a row joins it by a write on the
+device from the tensor that holds it, and the arena grows there.  Every
+store entry keeps a host copy (``vals_np``): the scheduler reads seed values
+on the host for the block-max search, and a copy off the card per seed
+would wait for every batch already queued on the stream.  A pool miss
+decodes on the card and keeps a ``HostCopy``, taken off the card once, at
+its first read.  Bitmap and layout rows keep the port's int32 bit patterns
+(the bitmap all-ones row is -1).
 
 Accounting for the query paths: ``_bump`` adds to a counter of the
 caller's ``stats`` dict, and ``span`` times a stage into the caller's
@@ -66,9 +68,10 @@ CAND_FLOOR = 8
 @dataclasses.dataclass
 class DecodedSource:
     """Fully decoded posting list: padded int32 values + valid count.
-    ``vals_np`` is the host copy where one exists for free (pool entries and
-    their fresh decodes), so schedulers read values without a copy off the
-    card.  ``key`` is the (part.uid, tid) identity for pool lookups."""
+    ``vals_np`` is the host copy where the pool keeps one (an array, or a
+    ``HostCopy`` taken at its first read), so schedulers read values
+    without a copy off the card once it is taken.  ``key`` is the
+    (part.uid, tid) identity for pool lookups."""
     vals: torch.Tensor
     n: int
     vals_np: np.ndarray | None = None
@@ -129,25 +132,25 @@ class PackedSource:
 
 def _extend_layout(lay: bitpack.PackedLayout, K: int, T: int, E: int,
                    pads: tuple) -> bitpack.PackedLayout:
-    """``lay`` re-padded to wider ``pads`` with ``bitpack.layout_np``'s pad
-    values: zero words and widths, offsets T − 1, maxes the last block's
-    max, exception positions -1 and additions 0."""
+    """``lay`` re-padded to wider ``pads`` with ``bitpack.pad_fills``."""
     k_pad, t_pad, e_pad = pads
     if K > k_pad or T > t_pad or E > e_pad:
         raise ValueError(f"pads too small: K={K}, T={T}, E={E} for {pads}")
+    fills = bitpack.pad_fills(T, lay.maxes[K - 1] if K else 0)
 
     def ext(a, size, fill):
         out = np.full((size,) + a.shape[1:], fill, a.dtype)
         out[: a.shape[0]] = a[:size]
         return out
 
-    return dataclasses.replace(
-        lay, words=ext(lay.words[:T], t_pad, 0),
-        widths=ext(lay.widths[:K], k_pad, 0),
-        offsets=ext(lay.offsets[:K], k_pad, max(T - 1, 0)),
-        maxes=ext(lay.maxes[:K], k_pad, lay.maxes[K - 1] if K else 0),
-        exc_pos=ext(lay.exc_pos[:E], e_pad, -1),
-        exc_add=ext(lay.exc_add[:E], e_pad, 0))
+    words, widths, offsets, maxes, exc_pos, exc_add = (
+        ext(a[:n], size, f) for a, n, size, f in zip(
+            (lay.words, lay.widths, lay.offsets, lay.maxes, lay.exc_pos,
+             lay.exc_add), (T, K, K, K, E, E),
+            (t_pad, k_pad, k_pad, k_pad, e_pad, e_pad), fills))
+    return dataclasses.replace(lay, words=words, widths=widths,
+                               offsets=offsets, maxes=maxes,
+                               exc_pos=exc_pos, exc_add=exc_add)
 
 
 def pad_block_ids(blk: np.ndarray, c_pad: int, k_pad: int) -> np.ndarray:
@@ -204,6 +207,23 @@ def layout_rows(lay: bitpack.PackedLayout) -> tuple:
     return tuple(np.ascontiguousarray(x).view(np.int32)
                  for x in (lay.words, lay.widths, lay.offsets, lay.maxes,
                            lay.exc_pos, lay.exc_add))
+
+
+def layout_device_rows(payload) -> tuple:
+    """A skip-capable payload's six layout operands (``layout_rows``'
+    order) as (row, fill) pairs of its own device tensors, for
+    ``RowArena`` writes at any pads: the row, then its pad value
+    (``bitpack.pad_fills``).  No host copy and no upload."""
+    K = int(payload.widths.shape[0])
+    T = int(payload.flat_words.shape[0])
+    exc_pos = getattr(payload, "exc_pos", None)
+    if exc_pos is None:
+        exc_pos = exc_add = payload.widths[:0]
+    else:
+        exc_add = payload.exc_add
+    return tuple(zip((payload.flat_words, payload.widths, payload.offsets,
+                      payload.maxes, exc_pos, exc_add),
+                     bitpack.pad_fills(T, payload.maxes[K - 1] if K else 0)))
 
 
 def cached_layout_dev(src: PackedSource, pads: tuple,
@@ -263,18 +283,65 @@ def decode_padded(codec, tp, device) -> tuple[torch.Tensor, int]:
     return its.pad_to_tensor(vals, its.pow2_bucket(tp.n)), tp.n
 
 
-def decode_staged(codec, tp, device) -> tuple[torch.Tensor, np.ndarray, int]:
+class HostCopy:
+    """The host copy of a decoded row on a device (padded with SENTINEL
+    past its count), taken when it is first read — ``np.asarray``, an index
+    or a slice — and kept.  A pool miss holds one instead of copying at
+    once: a copy off the card waits for every program queued on the
+    stream, and the host reads few misses (a seed whose folds are probed
+    packed, for the block-max search).  ``put`` takes the copy from a
+    reader that copied the row's first values itself."""
+    __slots__ = ("dev", "_np")
+
+    def __init__(self, dev: torch.Tensor):
+        self.dev, self._np = dev, None
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.dev.shape)
+
+    @property
+    def taken(self) -> bool:
+        return self._np is not None
+
+    def numpy(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self.dev.cpu().numpy()
+        return self._np
+
+    def put(self, head: np.ndarray) -> None:
+        """Keep ``head`` (the row's first values) and SENTINEL after it as
+        the copy, unless one is taken already."""
+        if self._np is None:
+            self._np = its.pad_to(head, self.dev.shape[0])
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __getitem__(self, i):
+        return self.numpy()[i]
+
+
+def host_taken(vals_np) -> bool:
+    """A source's host copy is on the host: an array, or a taken
+    ``HostCopy``."""
+    return vals_np is not None and (not isinstance(vals_np, HostCopy)
+                                    or vals_np.taken)
+
+
+def decode_staged(codec, tp, device) -> tuple[torch.Tensor, object, int]:
     """A pool miss: (values on ``device``, their host copy, count).  Varint
     decodes on the host and is uploaded; the rest decode where the payload
     lies (K1 or K7 on the card), move to ``device`` where that is another
-    one, and are copied off the card once."""
+    one, and keep a ``HostCopy``, copied off the card when first read."""
     if isinstance(tp.payload, varint_lib.VarintList):
         host = its.pad_to(varint_lib.decode(tp.payload).astype(np.int32),
                           its.pow2_bucket(tp.n))
         return to_device(host, device), host, tp.n
     vals, n = decode_padded(codec, tp, device)
     vals = vals.to(device)
-    return vals, vals.cpu().numpy(), n
+    return vals, HostCopy(vals), n
 
 
 def bitmap_host(tp) -> np.ndarray:
@@ -284,6 +351,13 @@ def bitmap_host(tp) -> np.ndarray:
     if getattr(tp, "host", None) is None:
         tp.host = tp.payload.cpu().numpy()
     return tp.host
+
+
+# The pool's counters in a query path's ``stats``: lookups that hit and
+# missed (``ResidentPool.get``), ints staged into the store and written into
+# arenas, arena doublings.  ``batch.schedule`` sets them to 0 when it runs
+# with a pool, so a reader tells "none" from "not counted".
+POOL_COUNTERS = ("pool_hits", "pool_misses", "staged_ints", "arena_grows")
 
 
 def _bump(stats, key, by=1):
@@ -368,61 +442,106 @@ class RowArena:
 
     Identity rows (SENTINEL / all-ones / all-zero / pad layout) take the
     first slots, so padded and inactive grid positions gather them.  The
-    buffer is rebuilt (a host ``np.stack`` and one pinned upload that does
-    not wait for the card) only when rows joined since the last build, at a
-    power-of-two row capacity (filler: the identity row).  A build replaces
-    the tensor; programs already queued keep the old one.
+    buffer is made once, from the identity rows, at a power-of-two row
+    capacity (filler: the identity row).  A row joins by a write into its
+    slot on the device, copied from the device tensor that already holds it
+    (a decoded list, a bitmap row, a packed payload's arrays) and padded
+    there with its fill value; when the slots run out the capacity doubles
+    with one device-side copy of the rows already there.  Writes and copies
+    are ordered on the device's stream after every gather already queued,
+    so programs in flight read the rows they were assembled from; a grown
+    buffer replaces the tensor.  The arena keeps no host copy of its rows.
 
     ``evict(key)`` returns a row's slot to a free list for the next miss,
     so churn does not grow the buffer; ``ints`` is the allocated footprint
     (the high-water row count), which the pool counts against its
-    capacity."""
+    capacity.  ``builds`` counts buffers uploaded whole (one, the
+    identities), ``grows`` the doublings."""
 
     def __init__(self, identities: list, device):
-        self.rows_np: list = list(identities)
+        self.identities = [np.asarray(r) for r in identities]
+        self.row_shape = tuple(self.identities[0].shape)
+        self.row_ints = int(np.prod(self.row_shape))
+        self.n_rows = len(self.identities)
         self.slots: dict = {}
         self.device = device
         self.evictions = 0
         self.builds = 0
+        self.grows = 0
         self._free: list[int] = []
         self._buf = None
 
-    def slot(self, key, make_np) -> int:
+    def slot(self, key, make_row, stats: dict | None = None) -> int:
+        """The slot of ``key``, written on a miss from ``make_row()``: a
+        pair (row, fill) of a device tensor, as long as the arena's rows or
+        shorter along its first axis, and the value of the rest (a number
+        or a 0-d device tensor).  A write adds the row's ints to
+        ``stats["staged_ints"]``, a doubling to ``stats["arena_grows"]``;
+        both run in the span ``pool.arena``."""
         s = self.slots.get(key)
         if s is None:
-            if self._free:
-                s = self._free.pop()
-                self.rows_np[s] = make_np()
-            else:
-                s = len(self.rows_np)
-                self.rows_np.append(make_np())
+            with span(stats, "pool.arena"):
+                buf = self.buffer()
+                if self._free:
+                    s = self._free.pop()
+                else:
+                    s = self.n_rows
+                    self.n_rows += 1
+                    if s >= buf.shape[0]:
+                        buf = self._grow(stats)
+                self._write(buf[s], make_row(), stats)
             self.slots[key] = s
-            self._buf = None
         return s
 
+    def _grow(self, stats) -> torch.Tensor:
+        old = self._buf
+        cap = old.shape[0]
+        buf = torch.empty((2 * cap,) + self.row_shape, dtype=old.dtype,
+                          device=old.device)
+        buf[:cap].copy_(old)
+        buf[cap:].copy_(old[0].expand((cap,) + self.row_shape))
+        self._buf = buf
+        self.grows += 1
+        _bump(stats, "arena_grows")
+        return buf
+
+    def _write(self, dst: torch.Tensor, got, stats) -> None:
+        row, fill = got
+        if row.device != dst.device:
+            row = row.to(dst.device, non_blocking=True)
+        n = row.shape[0]
+        dst[:n].copy_(row)
+        if n < dst.shape[0]:
+            rest = dst[n:]
+            if isinstance(fill, torch.Tensor):
+                rest.copy_(fill.to(dst.device).expand(rest.shape))
+            else:
+                rest.fill_(fill)
+        _bump(stats, "staged_ints", self.row_ints)
+
     def evict(self, key) -> int:
-        """Drop one row: its slot reverts to the identity row and is reused
-        by the next ``slot()`` miss.  Returns the ints the slot will stop
+        """Drop one row: its slot goes to the free list, to be written by
+        the next ``slot()`` miss.  Returns the ints the slot will stop
         pinning once reused."""
         s = self.slots.pop(key, None)
         if s is None:
             return 0
-        self.rows_np[s] = self.rows_np[0]
         self._free.append(s)
         self.evictions += 1
-        return int(np.prod(self.rows_np[0].shape))
+        return self.row_ints
 
     @property
     def ints(self) -> int:
-        return len(self.rows_np) * int(np.prod(self.rows_np[0].shape))
+        return self.n_rows * self.row_ints
 
     def buffer(self) -> torch.Tensor:
         if self._buf is None:
             cap = 1
-            while cap < len(self.rows_np):
+            while cap < self.n_rows:
                 cap <<= 1
-            rows = self.rows_np + [self.rows_np[0]] * (cap - len(self.rows_np))
-            self._buf = to_device(np.stack(rows), self.device)
+            ids = self.identities
+            self._buf = to_device(
+                np.stack(ids + [ids[0]] * (cap - len(ids))), self.device)
             self.builds += 1
         return self._buf
 
@@ -432,7 +551,7 @@ class RowArena:
         flat = to_device(np.ascontiguousarray(idx, np.int32).reshape(-1),
                          self.device)
         rows = torch.index_select(self.buffer(), 0, flat)
-        return rows.reshape(idx.shape + self.rows_np[0].shape)
+        return rows.reshape(idx.shape + self.row_shape)
 
 
 class ResidentPool:
@@ -494,56 +613,65 @@ class ResidentPool:
             return to_device(host, self.device)
         return dev if dev.device == self.device else dev.to(self.device)
 
-    def _add(self, key, host: np.ndarray, n: int, dev) -> dict:
+    def _add(self, key, host: np.ndarray, n: int, dev, stats) -> dict:
         entry = {"dev": self._on_device(host, dev), "np": host, "n": n,
                  "pads": {}, "ints": int(host.shape[0]), "pad_ints": 0}
         self._store[key] = entry
         self.staged_lists += 1
         self.staged_ints += entry["ints"]
+        _bump(stats, "staged_ints", entry["ints"])
         self.resident_ints += entry["ints"]
         self._evict()
         return entry
 
     def stage(self, key, vals_np: np.ndarray, n: int,
-              dev: torch.Tensor | None = None) -> dict:
+              dev: torch.Tensor | None = None,
+              stats: dict | None = None) -> dict:
         """Stage one padded decoded list; ``dev`` is its tensor where one
         exists already (moved to the pool's device if it lies elsewhere),
-        else the host copy is uploaded."""
+        else the host copy is uploaded.  ``stats["staged_ints"]`` takes
+        the ints staged."""
         if key in self._store:
             self._store.move_to_end(key)
             return self._store[key]
-        return self._add(key, vals_np, n, dev)
+        return self._add(key, vals_np, n, dev, stats)
 
     def stage_bitmap(self, key, words_np: np.ndarray,
-                     dev: torch.Tensor | None = None) -> torch.Tensor:
+                     dev: torch.Tensor | None = None,
+                     stats: dict | None = None) -> torch.Tensor:
         """Stage one bitmap term's word row (``key`` carries a 'bm' tag);
-        ``dev`` as in ``stage``."""
+        ``dev`` and ``stats`` as in ``stage``."""
         entry = self._store.get(key)
         if entry is None:
-            entry = self._add(key, words_np, int(words_np.shape[0]), dev)
+            entry = self._add(key, words_np, int(words_np.shape[0]), dev,
+                              stats)
         else:
             self._store.move_to_end(key)
         return entry["dev"]
 
     # -- lookup ------------------------------------------------------------
 
-    def get(self, key):
-        """(device vals, host vals, n) or None — counts hit/miss."""
+    def get(self, key, stats: dict | None = None):
+        """(device vals, host vals, n) or None — counts hit/miss, also in
+        ``stats["pool_hits"]`` / ``stats["pool_misses"]``."""
         entry = self._store.get(key)
         if entry is None:
             self.misses += 1
+            _bump(stats, "pool_misses")
             return None
         self.hits += 1
+        _bump(stats, "pool_hits")
         self._store.move_to_end(key)
         return entry["dev"], entry["np"], entry["n"]
 
     def __contains__(self, key) -> bool:
         return key in self._store        # residency peek: no counters
 
-    def padded(self, src: DecodedSource, size: int) -> torch.Tensor:
+    def padded(self, src: DecodedSource, size: int,
+               stats: dict | None = None) -> torch.Tensor:
         """Device row of ``src`` SENTINEL-padded to ``size``, memoized per
-        (entry, size); a source that is not this pool's entry pads on the
-        device."""
+        (entry, size) (its ints in ``stats["staged_ints"]``); a source that
+        is not this pool's entry pads on the device."""
         base = src.vals
         if base.shape[0] == size:
             return base
@@ -551,10 +679,11 @@ class ResidentPool:
         if entry is not None and entry["dev"] is base:
             dev = entry["pads"].get(size)
             if dev is None:
-                dev = to_device(its.pad_to(entry["np"], size), self.device)
+                dev = its.pad_to_tensor(base, size)
                 entry["pads"][size] = dev
                 entry["pad_ints"] += size
                 self.staged_ints += size
+                _bump(stats, "staged_ints", size)
                 self.resident_ints += size
                 self.pad_ints += size
                 self._evict()
@@ -626,8 +755,13 @@ class ResidentPool:
                                        for a in self._arenas.values())}
 
     def arena_builds(self) -> int:
-        """Arena buffers built so far (a steady state builds none)."""
+        """Arena buffers uploaded whole so far: one an arena, at its
+        creation (a steady state creates none)."""
         return sum(a.builds for a in self._arenas.values())
+
+    def arena_grows(self) -> int:
+        """Arena capacity doublings so far (a steady state makes none)."""
+        return sum(a.grows for a in self._arenas.values())
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -716,12 +850,12 @@ def resolve(part, tid: int, tp, codec, cache=None, r_count: int | None = None,
             vals, n = cache.get(key)
             return DecodedSource(vals, n, key=key)
         if pool is not None and key in pool:
-            dev, vals_np, n = pool.get(key)
+            dev, vals_np, n = pool.get(key, stats)
             _bump(stats, "resident_hits")
             return DecodedSource(dev, n, vals_np=vals_np, key=key)
         return PackedSource(tp.payload, tp.n, key=key)
     if pool is not None:
-        hit = pool.get(key)
+        hit = pool.get(key, stats)
         if hit is not None:
             _bump(stats, "resident_hits")
             return DecodedSource(hit[0], hit[2], vals_np=hit[1], key=key)
@@ -729,12 +863,13 @@ def resolve(part, tid: int, tp, codec, cache=None, r_count: int | None = None,
         hit = cache.get(key)
         if hit is not None:
             if pool is not None:          # promote: next batch gathers
-                pool.stage(key, hit[0].cpu().numpy(), hit[1], dev=hit[0])
+                pool.stage(key, hit[0].cpu().numpy(), hit[1], dev=hit[0],
+                           stats=stats)
             return DecodedSource(hit[0], hit[1], key=key)
     vals_np = None
     if pool is not None:
         vals, vals_np, n = decode_staged(codec, tp, pool.device)
-        vals = pool.stage(key, vals_np, n, dev=vals)["dev"]
+        vals = pool.stage(key, vals_np, n, dev=vals, stats=stats)["dev"]
     else:
         vals, n = decode_padded(codec, tp, part.device)
     _bump(stats, "decoded_ints", decoded_ints_of(tp.payload))

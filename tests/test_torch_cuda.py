@@ -815,6 +815,7 @@ def test_pool_batch_launches_without_a_host_sync(cuda):
         plan = batch.FusionPlan()
         batch.execute_batch(card, queries, pool=pool, plan=plan)
         builds = pool.arena_builds()
+        grows, rows = pool.arena_grows(), pool.arena_stats()["arena_rows"]
         ops.reset_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -825,6 +826,9 @@ def test_pool_batch_launches_without_a_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert pool.arena_builds() == builds, name
+        assert pool.stats()["evicted_lists"] == 0, name
+        assert pool.arena_grows() == grows, name
+        assert pool.arena_stats()["arena_rows"] == rows, name
         launched = ops.launches()
         assert (launched["decoded_fold_batched"]
                 + launched["packed_fold_batched"]) > 0, name
@@ -885,6 +889,44 @@ def test_pool_miss_decodes_through_k1_and_k7(cuda, monkeypatch):
         assert ops.launches()[kernel] > 0, codec
         assert np.array_equal(src.vals.cpu().numpy(), src.vals_np)
         assert miss.stats()["misses"] == 1
+
+
+@pytest.mark.parametrize("codec", ["bp-d4", "fastpfor-d1"])
+def test_b0_pool_warms_without_host_rebuilds(cuda, codec):
+    """A no-bitmap (B=0) index of ClueWeb09-shaped lists (2**23 documents,
+    lists to about 2M postings) served in bulk from a pool that evicts:
+    no warm pass uploads an arena whole (each arena is uploaded once, its
+    identity rows, at creation; rows are written on the card), the passes
+    reach a fixed point after which a pass grows no arena, and the
+    answers equal ``engine.query``'s."""
+    from repro_torch.index import (batch, builder, corpus as corpus_lib,
+                                   engine, pipeline, source)
+    corpus = corpus_lib.synthesize(n_docs=1 << 23, n_queries=256, seed=5,
+                                   shared_vocab=True)
+    idx = builder.build(corpus.postings, corpus.n_docs, codec_name=codec,
+                        B=0, n_parts=2, device=cuda)
+    queries = corpus.queries
+    pool = source.ResidentPool(capacity_ints=1 << 27, device=cuda)
+    pool.warm(idx)
+    plan = batch.FusionPlan()
+
+    def one_pass(stats=None):
+        out = pipeline.execute_pipelined(idx, queries, batch_size=64,
+                                         depth=2, pool=pool, plan=plan,
+                                         stats=stats)
+        assert pool.arena_builds() == pool.arena_stats()["arenas"]
+        return out
+
+    _, _, converged = batch.warm_to_fixed_point(one_pass, max_passes=6)
+    assert converged
+    one_pass()
+    grows = pool.arena_grows()
+    stats: dict = {}
+    got = one_pass(stats)
+    assert pool.stats()["evicted_lists"] > 0
+    assert stats["arena_grows"] == 0 and pool.arena_grows() == grows
+    assert stats["pool_misses"] > 0 and stats["staged_ints"] > 0
+    _same(got, [engine.query(idx, q) for q in queries])
 
 
 def test_shards_on_one_card_give_equal_answers(cuda):

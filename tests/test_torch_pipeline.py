@@ -61,6 +61,31 @@ def skewed():
     return _both(corpus, "bp8-d1", 0, 1)
 
 
+def _b0(codec):
+    """A ClueWeb09-shaped corpus (shared vocabulary, as the benchmark's
+    cells) built with no bitmaps: the long lists stay packed, so pool-mode
+    batches gather K5's operands from layout arenas, and FastPFOR's
+    patches fill the exception arenas."""
+    corpus = r_corpus.synthesize(n_docs=1 << 19, n_queries=24, seed=31,
+                                 shared_vocab=True)
+    return _both(corpus, codec, 0, 2)
+
+
+@pytest.fixture(scope="module")
+def b0_bp_d4():
+    return _b0("bp-d4")
+
+
+@pytest.fixture(scope="module")
+def b0_fastpfor():
+    return _b0("fastpfor-d1")
+
+
+# a pool whose arenas and lists outgrow it part way through a pass of the
+# B=0 corpora: it evicts, and later lookups both hit and miss
+EVICTING = 1 << 22
+
+
 def _pools(capacity_ints=1 << 26):
     return (r_source.ResidentPool(capacity_ints=capacity_ints),
             t_source.ResidentPool(capacity_ints=capacity_ints, device="cpu"))
@@ -237,18 +262,36 @@ def test_pipeline_matches_sequential_skewed(skewed, depth):
     _assert_identical(out, [t_engine.query(port, q) for q in queries])
 
 
-@pytest.mark.parametrize("depth", [1, 2, 4])
-def test_pipeline_with_pool_matches_sequential_skewed(skewed, depth):
+@pytest.mark.parametrize("depth,corpus,capacity", [
+    pytest.param(1, "skewed", 1 << 26, id="1"),
+    pytest.param(2, "skewed", 1 << 26, id="2"),
+    pytest.param(4, "skewed", 1 << 26, id="4"),
+    pytest.param(2, "b0_bp_d4", EVICTING, id="b0-bp-d4-evicting"),
+    pytest.param(2, "b0_fastpfor", EVICTING, id="b0-fastpfor-d1-evicting"),
+])
+def test_pipeline_with_pool_matches_sequential_skewed(request, depth, corpus,
+                                                      capacity):
     """The skewed corpus through a warmed pool: packed folds gathered from
-    layout arenas (K5's operands) at every depth."""
-    ref, port, queries, seq = skewed
-    r_pool, t_pool = _pools()
+    layout arenas (K5's operands) at every depth.  The B=0 corpora run
+    through a pool that evicts: rows are rewritten into freed arena slots
+    and the arenas grow on the device, and answers, counters and pool
+    accounting still equal the reference's and ``engine.query``'s."""
+    ref, port, queries, seq = request.getfixturevalue(corpus)
+    r_pool, t_pool = _pools(capacity)
     r_pool.warm(ref)
     t_pool.warm(port)
     out = _pipelined_both(ref, port, queries, depth, 2, r_pool, t_pool)
     _assert_identical(out, seq)
     _assert_same_pool(t_pool, r_pool)
     assert t_pool.arena_stats()["arenas"] >= 6       # the layout arenas
+    if capacity < 1 << 26:
+        assert t_pool.stats()["evicted_lists"] > 0
+        assert t_pool.arena_stats()["arena_evictions"] > 0
+        assert t_pool.arena_grows() > 0
+        _assert_identical(out, [t_engine.query(port, q) for q in queries])
+        out = _pipelined_both(ref, port, queries, depth, 2, r_pool, t_pool)
+        _assert_identical(out, seq)
+        _assert_same_pool(t_pool, r_pool)
 
 
 def test_pipeline_matches_reference_pallas_interpret(uniform):
@@ -342,13 +385,14 @@ def test_pool_churn_bounds_device_footprint(uniform):
 
 
 def test_arena_evict_reuses_slots():
+    import torch
     a = t_source.RowArena([np.zeros(4, np.int32)], "cpu")
-    s1 = a.slot("a", lambda: np.ones(4, np.int32))
-    a.slot("b", lambda: np.full(4, 2, np.int32))
+    s1 = a.slot("a", lambda: (torch.ones(4, dtype=torch.int32), 0))
+    a.slot("b", lambda: (torch.full((4,), 2, dtype=torch.int32), 0))
     ints0 = a.ints
     assert a.evict("a") == 4
     assert a.evict("missing") == 0
-    s3 = a.slot("c", lambda: np.full(4, 3, np.int32))
+    s3 = a.slot("c", lambda: (torch.full((4,), 3, dtype=torch.int32), 0))
     assert s3 == s1                         # freed slot reused
     assert a.ints == ints0                  # no growth
     assert a.evictions == 1
@@ -360,6 +404,123 @@ def test_arena_evict_reuses_slots():
     builds = a.builds
     a.buffer()
     assert a.builds == builds               # no rows joined: no rebuild
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_arena_grown_in_place_equals_the_rebuilt_buffer(seed):
+    """A seeded run of misses, hits and evictions through the port's
+    ``RowArena`` (rows written into their slots on the device, the
+    capacity doubled there) and the reference's (its buffer stacked anew
+    from host rows after each change): the same slots, footprint and
+    evictions, and every gather of the live slots equal.  Rows come as
+    whole device rows and as short device rows with a fill, a number or a
+    0-d tensor."""
+    import torch
+    rng = np.random.default_rng(seed)
+    width = 8
+    ident = np.full(width, -1, np.int32)
+    r_arena = r_source.RowArena([ident])
+    t_arena = t_source.RowArena([ident], "cpu")
+    live: dict = {}
+    for step in range(240):
+        if live and rng.random() < 0.3:
+            key = list(live)[int(rng.integers(0, len(live)))]
+            assert t_arena.evict(key) == r_arena.evict(key) == width
+            del live[key]
+        else:
+            key = int(rng.integers(0, 48))
+            n = int(rng.integers(0, width + 1))
+            row = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+            fill = int(rng.integers(-3, 3))
+            full = np.concatenate([row, np.full(width - n, fill, np.int32)])
+            make = (lambda: (torch.from_numpy(full.copy()), 0),
+                    lambda: (torch.from_numpy(row.copy()), fill),
+                    lambda: (torch.from_numpy(row.copy()),
+                             torch.tensor(fill, dtype=torch.int32)))[step % 3]
+            assert t_arena.slot(key, make) == r_arena.slot(key, lambda: full)
+            live.setdefault(key, full)
+        assert t_arena.slots == r_arena.slots
+        assert (t_arena.ints, t_arena.evictions) == (r_arena.ints,
+                                                      r_arena.evictions)
+        if step % 8 == 0 or step == 239:
+            idx = np.array([[0] + [t_arena.slots[k] for k in live]],
+                           np.int32)
+            got = t_arena.gather(idx).numpy()
+            assert np.array_equal(got, np.asarray(r_arena.buffer())[idx])
+            assert np.array_equal(got[0, 1:].reshape(-1, width),
+                                  np.stack([live[k] for k in live])
+                                  if live else np.zeros((0, width)))
+    assert t_arena.builds == 1 and t_arena.grows >= 5
+    assert t_arena.buffer().shape[0] >= len(r_arena.rows_np)
+
+
+@pytest.mark.parametrize("corpus", ["b0_bp_d4", "b0_fastpfor"])
+def test_arena_rows_join_from_device_tensors(request, corpus, monkeypatch):
+    """Through a pool that evicts, every arena is uploaded whole once, at
+    its creation (its identity rows), and every row after joins by a write
+    from a tensor on the pool's device (a decoded list, a bitmap row, a
+    payload's layout arrays): no miss, eviction or doubling stacks the
+    arena on the host, and no row passes through the host."""
+    import torch
+    _, port, queries, seq = request.getfixturevalue(corpus)
+    rows = []
+    write = t_source.RowArena._write
+
+    def spy(self, dst, got, stats):
+        rows.append(got[0])
+        return write(self, dst, got, stats)
+
+    monkeypatch.setattr(t_source.RowArena, "_write", spy)
+    t_pool = t_source.ResidentPool(capacity_ints=EVICTING, device="cpu")
+    for _ in range(2):
+        out = t_pipe.execute_pipelined(port, queries, batch_size=4, depth=2,
+                                       pool=t_pool)
+        _assert_identical(out, seq)
+    st = t_pool.stats()
+    assert st["evicted_lists"] > 0 and st["arena_evictions"] > 0
+    assert t_pool.arena_grows() > 0
+    assert t_pool.arena_builds() == st["arenas"]
+    assert len(rows) >= st["arena_rows"] > 0
+    assert all(isinstance(r, torch.Tensor) for r in rows)
+
+
+def test_pool_counters_in_the_query_stats(b0_fastpfor):
+    """``stats`` carries the pool's counters from the first pool-mode
+    schedule on: through an evicting pool a pass counts the lookups that
+    missed (as the pool's own ``misses`` does), the ints staged and
+    written into arenas, the arenas' doublings and the span
+    ``pool.arena``; through a warm pool that holds the whole log a pass
+    hits on every lookup, stages nothing and grows no arena.  Without a
+    pool, none of them is counted."""
+    _, port, queries, seq = b0_fastpfor
+    pool = t_source.ResidentPool(capacity_ints=EVICTING, device="cpu")
+    stats: dict = {}
+    out = t_pipe.execute_pipelined(port, queries, batch_size=4, depth=2,
+                                   pool=pool, stats=stats)
+    _assert_identical(out, seq)
+    assert (stats["pool_hits"], stats["pool_misses"]) == (pool.hits,
+                                                          pool.misses)
+    assert stats["pool_misses"] > 0 and pool.stats()["evicted_lists"] > 0
+    assert stats["staged_ints"] > pool.staged_ints > 0
+    assert stats["arena_grows"] == pool.arena_grows() > 0
+    assert stats["span_n"]["pool.arena"] > 0
+    pool = t_source.ResidentPool(device="cpu")
+    pool.warm(port)
+    for _ in range(2):
+        t_pipe.execute_pipelined(port, queries, batch_size=4, depth=2,
+                                 pool=pool)
+    stats = {}
+    out = t_pipe.execute_pipelined(port, queries, batch_size=4, depth=2,
+                                   pool=pool, stats=stats)
+    _assert_identical(out, seq)
+    assert stats["pool_hits"] > 0
+    assert stats["pool_misses"] == stats["staged_ints"] == 0
+    assert stats["arena_grows"] == 0
+    assert "pool.arena" not in stats.get("span_s", {})
+    stats = {}
+    t_pipe.execute_pipelined(port, queries, batch_size=4, depth=2,
+                             stats=stats)
+    assert not set(t_source.POOL_COUNTERS) & set(stats)
 
 
 def test_pool_warm_skips_long_skip_capable_lists(skewed):
